@@ -7,16 +7,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from ``mmidet_tpu_torch/csrc`` (nvcc);
   3. K1, the fused token transformer, against its plain PyTorch version at
-     the main path's shapes (B = 16, 128 tokens, L = 8, d = 64..512), with
+     the main paths' shapes (B = 16, 128 tokens, L = 8, d = 64..1024), with
      kernel, plain, library (torch.matmul + SDPA) and bound times;
   4. K2, greedy NMS, against its plain version (B = 16, K = 4096,
      max_det = 300): identical indices;
-  5. the main path: yolov5s_gpt4 at full width and depth, seeded random
-     weights, BN folded, bf16, batch 16 at 640x640, forward + NMS through
-     the kernels (launch counts asserted), throughput; the same path in f32
-     against the plain versions on the CPU at a small input; then
+  5. K3, the fused CEM, against its plain version at (16, 640, 640, 3) in
+     bf16 and f32 and at an odd shape that crosses tile borders; library
+     time: the port's unfused ``ContourEnhance`` (cuDNN);
+  6. K4, the fused GPT merge, against its plain version at the flagship's
+     four levels (gated at C = 128; 256, 512, 1024; B = 16, L = 8); library
+     time: adaptive_avg_pool + cuBLAS/SDPA transformer + interpolate + adds;
+  7. the first main path: yolov5s_gpt4 at full width and depth, seeded
+     random weights, BN folded, bf16, batch 16 at 640x640, forward + NMS
+     through K1 and K2 (launch counts asserted), throughput; the same path
+     in f32 against the plain versions on the CPU at a small input; then
      ``DetectionService`` answers 3 requests;
-  6. the ``kernels`` summary line, the card line, and the final
+  8. the flagship path: yolov5l_fuse3_fourier, the same way, through K3, K4
+     and K2 (``kernel_cem``, ``kernel_merge``), and timed in turns against
+     the same model with those two flags off and ``kernel_fusion`` on (K1,
+     cuDNN CEM, unfused pooling and upsampling);
+  9. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
 """
 
@@ -32,6 +42,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# A bound takes the card's peak for the operands' type, whichever units the
+# kernel itself runs on: bf16 operands with f32 accumulation count at the
+# tensor cores' rate, f32 operands at the f32 rate.
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
@@ -39,7 +52,15 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 # the order of f32 sums, but every layer rounds to bf16 (2^-8 relative) at
 # six points, so one flipped rounding compounds through 8 dependent layers.
 K1_TOL = 0.02
+# K3 in bf16: five rounding points; one flipped rounding of y + e moves z by
+# one bf16 step (2^-8 relative): 2% of max |plain|.  In f32 the two differ in
+# the order of sums only: 1e-4 of max |plain|.
+K3_TOL = {"bfloat16": 0.02, "float32": 1e-4}
+# K4: K1's gate; the merge adds one bf16 rounding to K1's compounding ones.
+K4_TOL = 0.02
 PATH_TOL = 2e-2                 # f32 model, kernels vs plain versions
+LEVELS = ((128, 160, True), (256, 80, False), (512, 40, False),
+          (1024, 20, False))    # flagship fusion levels at 640: C, H = W, gate
 
 
 def emit(obj) -> None:
@@ -118,12 +139,25 @@ def library_transformer(x, st, heads: int):
     return a
 
 
+def k1_work(B: int, L: int, n: int, d: int):
+    """Operations and bytes of one token-transformer call."""
+    return (L * B * (24 * n * d * d + 4 * n * n * d),
+            L * 12 * d * d * 2 + 2 * B * n * d * 2)
+
+
+def library_stack(torch, st):
+    lib = {k: v.to(torch.bfloat16) for k, v in st.items()}
+    lib["wqkv"] = torch.cat([lib["wq"], lib["wk"], lib["wv"]], 1)
+    lib["bqkv"] = torch.cat([lib["bq"], lib["bk"], lib["bv"]], 1)
+    return lib
+
+
 def phase_k1(torch, dev):
     from mmidet_tpu_torch.nn import transformer_cuda as tc
     B, L, heads, n = 16, 8, 8, tc.TOKENS
     gen = torch.Generator().manual_seed(1)
     shapes = []
-    for d in (64, 128, 256, 512):
+    for d in (64, 128, 256, 512, 1024):
         x = torch.randn(B, n, d, generator=gen).to(dev, torch.bfloat16)
         st = random_stack(d, L, gen, dev)
         ref = tc.fused_token_transformer_reference(x, st, heads).float()
@@ -131,21 +165,22 @@ def phase_k1(torch, dev):
         torch.cuda.synchronize()
         err = (out - ref).abs()
         ok = bool(err.max() <= K1_TOL * ref.abs().max())
-        lib_st = {k: v.to(torch.bfloat16) for k, v in st.items()}
-        lib_st["wqkv"] = torch.cat([lib_st["wq"], lib_st["wk"],
-                                    lib_st["wv"]], 1)
-        lib_st["bqkv"] = torch.cat([lib_st["bq"], lib_st["bk"],
-                                    lib_st["bv"]], 1)
+        lib_st = library_stack(torch, st)
         lib = library_transformer(x, lib_st, heads).float()
-        flops = L * B * (24 * n * d * d + 4 * n * n * d)
-        nbytes = L * 12 * d * d * 2 + 2 * B * n * d * 2
+        # the model keeps the kernel's weight buffers between forwards
+        # (nn/fusion.py:_stacked): "ms" is timed so, "ms_with_stacking"
+        # with the per-call casts and concatenation of a caller that does not
+        prep = tc.prepare_stack(st, dev)
+        flops, nbytes = k1_work(B, L, n, d)
         bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         rec = {
             "d": d, "max_abs_err": float(err.max()),
             "mean_abs_err": float(err.mean()),
             "max_abs_ref": float(ref.abs().max()),
             "library_max_abs_err": float((lib - ref).abs().max()),
-            "ms": time_ms(lambda: tc.fused_token_transformer(x, st, heads)),
+            "ms": time_ms(lambda: tc.fused_token_transformer(x, prep, heads)),
+            "ms_with_stacking": time_ms(
+                lambda: tc.fused_token_transformer(x, st, heads)),
             "plain_ms": time_ms(
                 lambda: tc.fused_token_transformer_reference(x, st, heads)),
             "library_ms": time_ms(
@@ -202,23 +237,226 @@ def phase_k2(torch, dev):
 
 
 # ------------------------------------------------------------------ phase 5
-def build_model(torch, spec, seed: int = 0):
+def phase_k3(torch, dev):
+    from mmidet_tpu_torch.nn import cem_cuda
+    from mmidet_tpu_torch.nn.cem import ContourEnhance
+    gen = torch.Generator().manual_seed(6)
+
+    def rn(*shape, scale, base=0.0):
+        return (base + scale * torch.randn(*shape, generator=gen)).to(dev)
+    # JAX layouts (HWIO); biases nonzero so that zero padding against bias
+    # shows at the borders
+    params = (rn(3, 3, 3, 24, scale=0.3), rn(24, scale=0.5),
+              rn(24, scale=0.4, base=1.0), rn(24, scale=0.5),
+              rn(3, 3, 24, 3, scale=0.2), rn(3, scale=0.5))
+    B, S = 16, 640
+    checks, main = [], None
+    for shape, dtype in (((B, S, S, 3), torch.bfloat16),
+                         ((B, S, S, 3), torch.float32),
+                         ((2, 352, 608, 3), torch.bfloat16),
+                         ((2, 352, 608, 3), torch.float32)):
+        x = torch.rand(*shape, generator=gen).to(dev, dtype)
+        ref = cem_cuda.fused_cem_reference(x, *params).float()
+        out = cem_cuda.fused_cem(x, *params).float()
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        err = float((out - ref).abs().max())
+        top = float(ref.abs().max())
+        ok = err <= K3_TOL[name] * top
+        checks.append({"shape": list(shape), "dtype": name,
+                       "max_abs_err": err, "max_abs_ref": top,
+                       "tol": K3_TOL[name], "ok": ok})
+        if main is None:
+            main = x
+        del ref, out
+    x = main
+    # the same function from the port's unfused module (cuDNN convolutions),
+    # bf16, on the same input and weights: the library yardstick
+    mod = ContourEnhance(3, fused=True).to(dev)
+    with torch.no_grad():
+        mod.conv2.weight.copy_(params[0].permute(3, 2, 0, 1))
+        mod.conv2.bias.copy_(params[1])
+        mod.sobel.sobel_factor.copy_(params[2].view(-1, 1, 1, 1))
+        mod.sobel.bias.copy_(params[3])
+        mod.conv3.weight.copy_(params[4].permute(3, 2, 0, 1))
+        mod.conv3.bias.copy_(params[5])
+    mod = mod.to(torch.bfloat16).eval()
+    x_nchw = x.permute(0, 3, 1, 2)
+    x32 = x.float()
+    pix = B * S * S
+    # per pixel: conv2 1296, channel sum 24, bank 144, tile x factor + bias
+    # 48, y + e 24, conv3 1296, residual 3
+    flops = pix * (1296 + 24 + 144 + 48 + 24 + 1296 + 3)
+    nbytes = pix * 3 * 2 * 2 + 1660 * 4
+    # the bf16 form's products take bf16 operands: the tensor cores' rate,
+    # though this kernel runs them on the CUDA cores; the f32 form's take f32
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    f32_bound_ms, f32_bound_by = bound(flops, pix * 3 * 4 * 2 + 1660 * 4,
+                                       PEAK_F32_FLOPS)
+    # the module keeps the packed weights between forwards (nn/cem.py):
+    # "ms" is timed so, "ms_with_packing" packs them in every call
+    pack = cem_cuda.pack_cem_weights(*params, x.dtype)
+    pack32 = cem_cuda.pack_cem_weights(*params, x32.dtype)
+    with torch.inference_mode():
+        lib = mod(x_nchw).permute(0, 2, 3, 1).float()
+        rec = {"shape": [B, S, S, 3], "dtype": "bfloat16",
+               "max_abs_err": max(c["max_abs_err"] for c in checks
+                                  if c["dtype"] == "bfloat16"),
+               "library_max_abs_err": float(
+                   (lib - cem_cuda.fused_cem_reference(x, *params).float())
+                   .abs().max()),
+               "ms": time_ms(
+                   lambda: cem_cuda.fused_cem(x, *params, pack=pack)),
+               "ms_with_packing": time_ms(
+                   lambda: cem_cuda.fused_cem(x, *params)),
+               "plain_ms": time_ms(
+                   lambda: cem_cuda.fused_cem_reference(x, *params), reps=5,
+                   warmup=1),
+               "library_ms": time_ms(lambda: mod(x_nchw)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "f32_form": {
+                   "ms": time_ms(lambda: cem_cuda.fused_cem(
+                       x32, *params, pack=pack32)),
+                   "bound_ms": f32_bound_ms, "bound_by": f32_bound_by},
+               "checks": checks, "ok": all(c["ok"] for c in checks)}
+    emit({"phase": "k3_fused_cem", **rec})
+    if not rec["ok"]:
+        raise AssertionError(f"K3 disagrees with its plain version: {checks}")
+    return rec
+
+
+# ------------------------------------------------------------------ phase 6
+def library_merge(torch, rgb, ir, st, pos, lns, lnb, heads, gate):
+    """The same function from PyTorch's own operators, bf16, on NCHW views
+    of the NHWC streams: a yardstick, never called by the port."""
+    import torch.nn.functional as F
+    r, i = rgb.permute(0, 3, 1, 2), ir.permute(0, 3, 1, 2)
+    b, c, h, w = r.shape
+    rp, ip = F.adaptive_avg_pool2d(r, 8), F.adaptive_avg_pool2d(i, 8)
+    if gate is not None:
+        g1, g2 = gate
+        rp = F.conv2d(torch.sigmoid(F.conv2d(rp, g1)), g2) * rp
+        ip = F.conv2d(torch.sigmoid(F.conv2d(ip, g1)), g2) * ip
+    tok = torch.cat([rp.flatten(2).transpose(1, 2),
+                     ip.flatten(2).transpose(1, 2)], 1) + pos
+    z = F.layer_norm(library_transformer(tok, st, heads), (c,), lns, lnb,
+                     1e-5)
+    zr = z[:, :64].transpose(1, 2).reshape(b, c, 8, 8)
+    zi = z[:, 64:].transpose(1, 2).reshape(b, c, 8, 8)
+    return (r + F.interpolate(zr, size=(h, w), mode="bilinear",
+                              align_corners=False),
+            i + F.interpolate(zi, size=(h, w), mode="bilinear",
+                              align_corners=False))
+
+
+def phase_k4(torch, dev):
+    from mmidet_tpu_torch.nn import fusion_cuda as fc
+    from mmidet_tpu_torch.nn.transformer_cuda import prepare_stack
+    B, L, heads = 16, 8, 8
+    gen = torch.Generator().manual_seed(7)
+    bf16 = torch.bfloat16
+    levels = []
+    for d, hw, gated in LEVELS:
+        rgb = torch.randn(B, hw, hw, d, generator=gen).to(dev, bf16)
+        ir = (0.3 * torch.randn(B, hw, hw, d, generator=gen) + 0.2).to(
+            dev, bf16)
+        st = random_stack(d, L, gen, dev)
+        pos = (0.2 * torch.randn(1, 128, d, generator=gen)).to(dev)
+        lns = (1 + 0.2 * torch.randn(d, generator=gen)).to(dev)
+        lnb = (0.2 * torch.randn(d, generator=gen)).to(dev)
+        gate = lib_gate = None
+        if gated:
+            gate = {"g1": (torch.randn(d, 8, generator=gen)
+                           / math.sqrt(d)).to(dev),
+                    "g2": (torch.randn(8, d, generator=gen)
+                           / math.sqrt(8)).to(dev)}
+            lib_gate = (gate["g1"].T.reshape(8, d, 1, 1).to(bf16),
+                        gate["g2"].T.reshape(d, 8, 1, 1).to(bf16))
+        args = (rgb, ir, st, pos, lns, lnb, heads, gate)
+        kept = (rgb, ir, prepare_stack(st, dev), pos, lns, lnb, heads, gate)
+        ref = fc.fused_gpt_merge_reference(*args)
+        out = fc.fused_gpt_merge(*args)
+        torch.cuda.synchronize()
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(out, ref))
+        top = max(float(r.float().abs().max()) for r in ref)
+        ok = err <= K4_TOL * top
+        lib_args = (rgb, ir, library_stack(torch, st), pos.to(bf16),
+                    lns.to(bf16), lnb.to(bf16), heads, lib_gate)
+        lib = library_merge(torch, *lib_args)
+        lib_err = max(float((o.permute(0, 2, 3, 1).float() - r.float())
+                            .abs().max()) for o, r in zip(lib, ref))
+        del ref, out, lib
+        # bytes: both streams read once and written once, the weights once;
+        # operations: K1's, plus per stream element one add for the pool, 9
+        # for the interpolation and one for the sum, and the gate's two
+        # products; all on bf16 operands
+        k1_flops, k1_bytes = k1_work(B, L, 128, d)
+        elem = 2 * B * hw * hw * d
+        flops = k1_flops + elem * 11 + (B * 128 * d * 8 * 4 if gated else 0)
+        nbytes = 2 * elem * 2 + k1_bytes
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        rec = {"d": d, "hw": hw, "gated": gated, "max_abs_err": err,
+               "max_abs_ref": top, "library_max_abs_err": lib_err,
+               "ms": time_ms(lambda: fc.fused_gpt_merge(*kept)),
+               "ms_with_stacking": time_ms(
+                   lambda: fc.fused_gpt_merge(*args)),
+               "plain_ms": time_ms(
+                   lambda: fc.fused_gpt_merge_reference(*args), reps=5,
+                   warmup=1),
+               "library_ms": time_ms(
+                   lambda: library_merge(torch, *lib_args)),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": flops / 1e9,
+               "mbytes": nbytes / 1e6, "ok": ok}
+        emit({"phase": "k4_fused_gpt_merge", **rec})
+        if not ok:
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"d={d}: max |err| {err} at |ref| {top}")
+        levels.append(rec)
+        del rgb, ir, args, kept, lib_args
+    return levels
+
+
+# -------------------------------------------------------------- phases 7, 8
+def build_model(torch, spec, seed: int = 0, **flags):
     """Seeded torch init; the fusion transformers' LN and bias parameters
     (and pos-emb) randomised to normal * 0.2, as the JAX package's kernel
-    tests do; then BN folded."""
+    tests do; then BN folded.  ``flags`` are the detector's kernel flags
+    (default: ``kernel_fusion`` alone)."""
     from mmidet_tpu_torch.models.detector import TwoStreamDetector
     from mmidet_tpu_torch.nn.fuse import fold_batchnorm
-    from mmidet_tpu_torch.nn.fusion import CrossModalTransformer
+    from mmidet_tpu_torch.nn.fusion import _TokenTransformer
     torch.manual_seed(seed)
-    model = TwoStreamDetector(spec, kernel_fusion=True)
+    model = TwoStreamDetector(spec, **(flags or {"kernel_fusion": True}))
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, CrossModalTransformer):
+            if isinstance(mod, _TokenTransformer):
                 for name, p in mod.named_parameters():
                     if p.dim() == 1 or name == "pos_emb":
                         p.copy_(0.2 * torch.randn(p.shape, generator=gen))
     return fold_batchnorm(model).eval()
+
+
+def set_kernel_flags(model, kernel_fusion: bool, kernel_cem: bool,
+                     kernel_merge: bool) -> None:
+    """Switch a built detector between its kernel routes (same weights)."""
+    model.Enhance.use_kernel = kernel_cem
+    for mod in model.modules():
+        if hasattr(mod, "merge_kernel"):
+            mod.use_kernel, mod.merge_kernel = kernel_fusion, kernel_merge
+
+
+def counters():
+    from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda, transformer_cuda
+    from mmidet_tpu_torch.ops import nms_cuda
+    return {"fused_token_transformer":
+            transformer_cuda.fused_token_transformer,
+            "nms_greedy": nms_cuda.nms_greedy,
+            "fused_cem": cem_cuda.fused_cem,
+            "fused_gpt_merge": fusion_cuda.fused_gpt_merge}
 
 
 def png(arr) -> bytes:
@@ -228,20 +466,25 @@ def png(arr) -> bytes:
     return buf.getvalue()
 
 
-def phase_main(torch, dev, name: str):
+def phase_path(torch, dev, card: str, phase: str, vs_phase: str,
+               model_name: str, flags, want_launches, alt_flags=None,
+               reps: int = 10):
+    """Drive one model end to end: forward + NMS at batch 16, 640x640, bf16
+    through the kernels (launches counted from 0 and asserted), the same
+    path in f32 against the plain versions on the CPU, and three service
+    requests.  ``alt_flags``: a second kernel route of the same model,
+    timed in turns with the first."""
     import copy
 
     import numpy as np
 
     from mmidet_tpu_torch.deploy.serve import DetectionService
-    from mmidet_tpu_torch.models.zoo import two_stream_spec
-    from mmidet_tpu_torch.nn import transformer_cuda as tc
-    from mmidet_tpu_torch.ops import nms_cuda
+    from mmidet_tpu_torch.models.zoo import get_model_spec
     from mmidet_tpu_torch.ops.nms import non_max_suppression
 
-    spec = two_stream_spec("s", "gpt4", nc=6)
+    spec = get_model_spec(model_name)
     B, S, small_img = 16, 640, 320
-    model = build_model(torch, spec)
+    model = build_model(torch, spec, **flags)
     f32_model = copy.deepcopy(model)
     model = model.to(dev, torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -258,37 +501,59 @@ def phase_main(torch, dev, name: str):
     with torch.inference_mode():
         nms(forward())  # warm-up (first launches)
         torch.cuda.synchronize()
-        tc.fused_token_transformer.launches = 0
-        nms_cuda.nms_greedy.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters().values():
+            fn.launches = 0
         pred = forward()
         dets, valid = nms(pred)
         torch.cuda.synchronize()
-        launches = {"fused_token_transformer":
-                    tc.fused_token_transformer.launches,
-                    "nms_greedy": nms_cuda.nms_greedy.launches}
-        if launches != {"fused_token_transformer": 4, "nms_greedy": 1}:
-            raise AssertionError(f"main path missed its kernels: {launches}")
+        launches = {k: fn.launches for k, fn in counters().items()}
+        if launches != want_launches:
+            raise AssertionError(f"{model_name} missed its kernels: "
+                                 f"{launches}, expected {want_launches}")
         n_box = sum(3 * (S // s) ** 2 for s in spec.strides)
-        if tuple(pred.shape) != (B, n_box, 11) or \
+        if tuple(pred.shape) != (B, n_box, 5 + spec.nc) or \
                 not bool(torch.isfinite(pred).all()) or \
                 not bool(torch.isfinite(dets).all()):
-            raise AssertionError(f"bad main-path output {tuple(pred.shape)}")
+            raise AssertionError(f"bad output of {model_name}: "
+                                 f"{tuple(pred.shape)}")
         conf = pred[..., 4:5].float() * pred[..., 5:].float()
         pool = int((conf.amax(-1) > 0.001).sum(1).min())
-        fwd_ms = time_ms(forward, reps=10, warmup=1)
-        nms_ms = time_ms(lambda: nms(pred), reps=10, warmup=1)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit({"phase": "main_path", "model": "yolov5s_gpt4", "batch": B,
-          "img": S, "dtype": "bfloat16", "card": name,
-          "launches_per_forward": launches,
-          "min_candidates_above_conf": pool,
-          "kept_per_image": float(valid.sum(1).float().mean()),
-          "forward_ms_per_batch": fwd_ms, "nms_ms_per_batch": nms_ms,
-          "forward_img_per_s": B / fwd_ms * 1e3,
-          "nms_img_per_s": B / nms_ms * 1e3,
-          "forward_nms_img_per_s": B / (fwd_ms + nms_ms) * 1e3,
-          "forward_ms_per_img": fwd_ms / B, "nms_ms_per_img": nms_ms / B,
-          "peak_mem_gb": peak_gb})
+        fwd = {"kernels": []}
+        if alt_flags is None:
+            fwd["kernels"].append(time_ms(forward, reps=reps, warmup=1))
+        else:  # in turns: kernels, other route, other route, kernels
+            fwd["other"] = []
+            for which in ("kernels", "other", "other", "kernels"):
+                set_kernel_flags(model, **{
+                    "kernel_fusion": False, "kernel_cem": False,
+                    "kernel_merge": False,
+                    **(flags if which == "kernels" else alt_flags)})
+                fwd[which].append(time_ms(forward, reps=reps, warmup=2))
+        fwd_ms = statistics.mean(fwd["kernels"])
+        nms_ms = time_ms(lambda: nms(pred), reps=reps, warmup=1)
+    rec = {"phase": phase, "model": model_name, "batch": B, "img": S,
+           "dtype": "bfloat16", "card": card, "flags": flags,
+           "launches_per_forward": launches,
+           "min_candidates_above_conf": pool,
+           "kept_per_image": float(valid.sum(1).float().mean()),
+           "forward_ms_per_batch": fwd_ms, "nms_ms_per_batch": nms_ms,
+           "forward_img_per_s": B / fwd_ms * 1e3,
+           "nms_img_per_s": B / nms_ms * 1e3,
+           "forward_nms_img_per_s": B / (fwd_ms + nms_ms) * 1e3,
+           "forward_ms_per_img": fwd_ms / B, "nms_ms_per_img": nms_ms / B,
+           "peak_mem_gb": peak_gb}
+    emit(rec)
+    if alt_flags is not None:
+        other_ms = statistics.mean(fwd["other"])
+        emit({"phase": phase + "_other_route", "model": model_name,
+              "flags": alt_flags, "order": "kernels, other, other, kernels",
+              "forward_ms_per_batch_kernels": fwd["kernels"],
+              "forward_ms_per_batch_other": fwd["other"],
+              "forward_ms_per_batch": other_ms,
+              "forward_img_per_s": B / other_ms * 1e3,
+              "kernels_over_other": fwd_ms / other_ms})
 
     # the same path in f32 against the plain versions on the CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -308,17 +573,19 @@ def phase_main(torch, dev, name: str):
     nms_same = bool(torch.equal(v_cpu, v_gpu.cpu())
                     and torch.allclose(d_cpu, d_gpu.cpu(), atol=1e-5,
                                        rtol=0))
-    emit({"phase": "main_path_vs_plain", "dtype": "float32",
-          "img": small_img, "batch": 2, "pred_max_abs_err": err,
+    emit({"phase": vs_phase, "model": model_name,
+          "dtype": "float32", "img": small_img, "batch": 2,
+          "pred_max_abs_err": err,
           "pred_max_abs": float(cpu_pred.abs().max()), "tol": PATH_TOL,
           "pred_close": close, "nms_identical": nms_same,
           "kept": int(v_gpu.sum())})
     if not (close and nms_same):
-        raise AssertionError("kernel path disagrees with the plain path")
+        raise AssertionError(f"{model_name}: the kernel path disagrees with "
+                             f"the plain path")
     del gpu_model, f32_model
 
-    svc = DetectionService(model, [str(i) for i in range(6)], img_size=S,
-                           conf_thres=0.001, device=dev)
+    svc = DetectionService(model, [str(i) for i in range(spec.nc)],
+                           img_size=S, conf_thres=0.001, device=dev)
     rng = np.random.default_rng(5)
     t0 = time.perf_counter()
     counts = []
@@ -328,14 +595,25 @@ def phase_main(torch, dev, name: str):
         keys = {"xmin", "ymin", "xmax", "ymax", "confidence", "class",
                 "name"}
         if not isinstance(recs, list) or not all(
-                set(r) == keys and 0 <= r["class"] < 6
+                set(r) == keys and 0 <= r["class"] < spec.nc
                 and all(math.isfinite(r[k]) for k in keys - {"name"})
                 for r in recs):
             raise AssertionError("malformed detection records")
         counts.append(len(recs))
-    emit({"phase": "service", "requests": 3, "records": counts,
-          "seconds": time.perf_counter() - t0})
+    emit({"phase": "service", "model": model_name, "requests": 3,
+          "records": counts, "seconds": time.perf_counter() - t0})
+    del svc, model
+    torch.cuda.empty_cache()
     return launches
+
+
+def summed(recs, key):
+    return sum(r[key] for r in recs)
+
+
+def majority_bound(recs):
+    ops = sum(r["bound_by"] == "operations" for r in recs)
+    return "operations" if 2 * ops > len(recs) else "bytes"
 
 
 def main() -> int:
@@ -356,42 +634,72 @@ def main() -> int:
     print(card, flush=True)
     emit({"phase": "device", "name": name, "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    # the plain versions and the f32 comparisons run in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
 
     secs = kernels.build_all()
     regs = [ln.strip() for n in kernels.SIGNATURES
             for ln in kernels.build_log(n).splitlines() if "Used" in ln]
-    emit({"phase": "build", "seconds": secs, "ptxas": regs})
+    emit({"phase": "build", "seconds": secs, "libraries":
+          sorted(kernels.SIGNATURES), "ptxas": regs})
 
     k1 = phase_k1(torch, dev)
     k2 = phase_k2(torch, dev)
-    launches = phase_main(torch, dev, name)
+    k3 = phase_k3(torch, dev)
+    k4 = phase_k4(torch, dev)
+    first = phase_path(
+        torch, dev, name, "main_path", "main_path_vs_plain", "yolov5s_gpt4",
+        {"kernel_fusion": True},
+        {"fused_token_transformer": 4, "nms_greedy": 1, "fused_cem": 0,
+         "fused_gpt_merge": 0}, reps=5)
+    flagship = phase_path(
+        torch, dev, name, "flagship_path", "flagship_vs_plain",
+        "yolov5l_fuse3_fourier",
+        {"kernel_cem": True, "kernel_merge": True},
+        {"fused_cem": 1, "fused_gpt_merge": 4, "fused_token_transformer": 0,
+         "nms_greedy": 1}, alt_flags={"kernel_fusion": True})
 
-    def total(key):
-        return sum(r[key] for r in k1)
-
+    # K1's row sums the four levels of the yolov5s_gpt4 forward
+    k1_path = [r for r in k1 if r["d"] <= 512]
+    shape_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "max_abs_err")
     summary = {"kernels": [
         {"name": "fused_token_transformer", "route": "cuda",
          "source": "mmidet_tpu_torch/csrc/token_transformer.cu",
          "replaces": "mmidet_tpu/nn/transformer_pallas.py:218",
-         "launches": launches["fused_token_transformer"],
+         "launches": first["fused_token_transformer"],
          "max_abs_err": max(r["max_abs_err"] for r in k1),
-         "ms": total("ms"), "plain_ms": total("plain_ms"),
-         "bound_ms": total("bound_ms"),
-         "bound_by": ("operations" if sum(r["bound_by"] == "operations"
-                                          for r in k1) > 2 else "bytes"),
-         "library_ms": total("library_ms"),
-         "per_shape": [{k: r[k] for k in ("d", "ms", "plain_ms",
-                                          "library_ms", "bound_ms",
-                                          "bound_by", "max_abs_err")}
-                       for r in k1]},
+         "ms": summed(k1_path, "ms"), "plain_ms": summed(k1_path, "plain_ms"),
+         "bound_ms": summed(k1_path, "bound_ms"),
+         "bound_by": majority_bound(k1_path),
+         "library_ms": summed(k1_path, "library_ms"),
+         "per_shape": [{k: r[k] for k in ("d",) + shape_keys} for r in k1]},
         {"name": "nms_greedy", "route": "cuda",
          "source": "mmidet_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "mmidet_tpu/ops/nms_pallas.py:82",
-         "launches": launches["nms_greedy"],
+         "launches": flagship["nms_greedy"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": None}]}
+         "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "fused_cem", "route": "cuda",
+         "source": "mmidet_tpu_torch/csrc/cem.cu",
+         "replaces": "mmidet_tpu/nn/cem_pallas.py:280",
+         "launches": flagship["fused_cem"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+        # K4's row sums the four levels of the flagship forward
+        {"name": "fused_gpt_merge", "route": "cuda",
+         "source": "mmidet_tpu_torch/csrc/gpt_merge.cu",
+         "replaces": "mmidet_tpu/nn/fusion_pallas.py:298",
+         "launches": flagship["fused_gpt_merge"],
+         "max_abs_err": max(r["max_abs_err"] for r in k4),
+         "ms": summed(k4, "ms"), "plain_ms": summed(k4, "plain_ms"),
+         "bound_ms": summed(k4, "bound_ms"),
+         "bound_by": majority_bound(k4),
+         "library_ms": summed(k4, "library_ms"),
+         "per_shape": [{k: r[k] for k in ("d", "hw", "gated") + shape_keys}
+                       for r in k4]}]}
     emit(summary)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

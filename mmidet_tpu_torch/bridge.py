@@ -9,6 +9,8 @@ checkpoint converter computes (``mmidet_tpu/train/checkpoint.py:84-169``,
 
   * conv kernels HWIO -> OIHW; Dense kernels (in, out) -> (out, in);
   * ``sobel_factor`` (out,) -> (out, 1, 1, 1);
+  * the ``trans`` and ``pattern`` scopes of the fusion blocks are flat in
+    the reference (``pattern/conv1/kernel`` -> ``conv1.weight``);
   * Focus's ``conv_kernel_s2d`` -> ``conv.conv.weight`` (and its folded
     ``conv_bias`` -> ``conv.conv.bias``);
   * BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
@@ -78,7 +80,7 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
             out.append("m." + s[1:])
         elif re.fullmatch(r"block\d+", s):    # token transformer blocks
             out.append("trans_blocks." + s[len("block"):])
-        elif s == "trans":                    # flat in the reference
+        elif s in ("trans", "pattern"):       # flat in the reference
             pass
         elif s == "mlp_fc1":
             out.append("mlp.0")

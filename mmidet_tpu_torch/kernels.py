@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 happens at first use, into ``_build/`` beside this file (git-ignored); the
-library name carries a hash of its source, so an edited source is rebuilt
-and a stale library is never loaded.  All sources build in parallel, one
+library name carries a hash of its source and of the shared ``csrc/*.cuh``
+headers, so an edited source is rebuilt and a stale library is never
+loaded.  All sources build in parallel, one
 ``nvcc`` each.
 
 Nothing is built or loaded on import: the CPU tests import every module.
@@ -35,6 +36,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "token_transformer": ("tt_forward", [_P] * 18 + [_I] * 4 + [_P]),
     "nms_greedy": ("nms_greedy_forward", [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "cem": ("cem_forward", [_P] * 3 + [_I] * 4 + [_P]),
+    "gpt_merge": ("gpt_merge_forward", [_P] * 26 + [_I] * 7 + [_P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -49,7 +52,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count for every library that may include them
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources)
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
@@ -118,3 +123,14 @@ def check(name: str, err: int) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def stamp(tensors) -> tuple:
+    """What tells two states of ``tensors`` apart between calls: each one's
+    storage address, dtype and in-place version.  A caller that keeps
+    kernel-ready copies of its parameters rebuilds them when this changes
+    (``.to()`` moves the storage; ``copy_``, ``load_state_dict`` and an
+    optimiser step raise the version).  Inference tensors count no
+    versions: they cannot be written outside inference mode."""
+    return tuple((t.data_ptr(), t.dtype,
+                  None if t.is_inference() else t._version) for t in tensors)

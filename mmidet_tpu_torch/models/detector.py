@@ -22,10 +22,13 @@ from mmidet_tpu_torch.models.detect_head import Detect
 from mmidet_tpu_torch.models.spec import SECOND_INPUT, ModelSpec, resolve
 from mmidet_tpu_torch.nn import layers as L
 from mmidet_tpu_torch.nn.cem import ContourEnhance
-from mmidet_tpu_torch.nn.fusion import CrossModalTransformer
+from mmidet_tpu_torch.nn.fusion import (CrossModalTransformer,
+                                        FourierPatternFusion, PatternFusion)
 from mmidet_tpu_torch.nn.resize import nearest_upsample
 
 _PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample"}
+_FUSION = {"GPT": CrossModalTransformer, "GPT1": PatternFusion,
+           "GPT1_fourier": FourierPatternFusion}
 
 
 def _nhwc(t):
@@ -38,11 +41,17 @@ class TwoStreamDetector(nn.Module):
     """``fused``: BN folded into the convs (deploy form).
     ``kernel_fusion``: the fusion transformers run the fused token
     transformer kernel (the JAX package's ``pallas_fusion``).
+    ``kernel_cem``: the CEM runs as the fused CEM kernel (``pallas_cem``;
+    needs the BN-folded model).
+    ``kernel_merge``: every fusion level runs as the fused GPT-merge kernel
+    and its two ``Add2`` rows become selects (``merge_fusion_kernel``); it
+    takes the place of ``kernel_fusion`` at those levels.
     ``truncate_at``: stop after that layer and return ``{"trunc": out}``
     (NHWC), for layer-by-layer comparison."""
 
     def __init__(self, spec: ModelSpec, aux_mode: str = "off",
                  fused: bool = False, kernel_fusion: bool = False,
+                 kernel_cem: bool = False, kernel_merge: bool = False,
                  truncate_at: int | None = None):
         super().__init__()
         if aux_mode != "off":
@@ -51,7 +60,8 @@ class TwoStreamDetector(nn.Module):
         self.spec = spec
         self.truncate_at = truncate_at
         self.resolved, self.save = resolve(spec)
-        self.Enhance = ContourEnhance(spec.ch_in, fused)
+        self.Enhance = ContourEnhance(spec.ch_in, fused,
+                                      use_kernel=kernel_cem)
         ch = [rl.c_out for rl in self.resolved]
 
         def ch_of(j, i):
@@ -71,9 +81,12 @@ class TwoStreamDetector(nn.Module):
                 mod = L.C3(c1, a[0], *a[1:], fused=fused)
             elif m == "SPP":
                 mod = L.SPP(c1, a[0], *a[1:], fused=fused)
-            elif m == "GPT":
-                mod = CrossModalTransformer(a[0], n_layer=spec.fusion_layers,
-                                            use_kernel=kernel_fusion)
+            elif m in _FUSION:
+                # the inference path drops GPT1*'s pattern loss: not computed
+                extra = {} if m == "GPT" else {"with_loss": False}
+                mod = _FUSION[m](a[0], n_layer=spec.fusion_layers,
+                                 use_kernel=kernel_fusion,
+                                 merge_kernel=kernel_merge, **extra)
             elif m == "Detect":
                 mod = Detect(a[0], a[1], a[2], spec.strides)
             elif m in _PARAMETER_FREE:
@@ -90,6 +103,8 @@ class TwoStreamDetector(nn.Module):
         x = self.Enhance(rgb.permute(0, 3, 1, 2).to(dt))
         x2 = ir.permute(0, 3, 1, 2).to(dt)
         y: dict[int, object] = {}
+        # fusion layers whose outputs are already merged into the streams
+        premerged: set[int] = set()
         for rl, mod in zip(self.resolved, self.model):
             def get(j):
                 if j == -1:
@@ -104,14 +119,19 @@ class TwoStreamDetector(nn.Module):
             elif m == "Add":
                 x = inp[0] + inp[1]
             elif m == "Add2":
-                x = inp[0] + inp[1][rl.args[0]]
+                if rl.f[1] in premerged:
+                    x = inp[1][rl.args[0]]
+                else:
+                    x = inp[0] + inp[1][rl.args[0]]
             elif m == "Upsample":
                 # args follow torch nn.Upsample(size, scale_factor, mode)
                 if rl.args[2] != "nearest":
                     raise NotImplementedError(f"Upsample mode {rl.args[2]!r}")
                 x = nearest_upsample(inp, int(rl.args[1]))
-            elif m == "GPT":
-                x = list(mod(inp[0], inp[1]))
+            elif m in _FUSION:
+                x = list(mod(inp[0], inp[1])[:2])  # GPT1*: drop pattern loss
+                if mod.merge_kernel and not mod.training:
+                    premerged.add(rl.index)
             elif m == "Detect":
                 train_outs, pred = mod(inp)
                 return {"train_outs": train_outs, "pred": pred}

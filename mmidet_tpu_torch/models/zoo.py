@@ -1,8 +1,9 @@
 """Model zoo: the two-stream specs the port runs.
 
 A copy of ``mmidet_tpu/models/zoo.py`` (``SCALES``, ``COCO_ANCHORS``,
-``_head``, the fused-at-every-level branch of ``two_stream_spec`` and
-``dryrun_spec``), so that the port imports nothing of the JAX package.
+``_head``, the fused-at-every-level branch of ``two_stream_spec``,
+``dryrun_spec`` and ``get_model_spec`` for the two-stream names), so that
+the port imports nothing of the JAX package.
 Families (reference ``models/transformer/*.yaml``):
   * ``fusion='fourier'`` — GPT1_fourier at P2, GPT at P3/P4/P5
     (``yolov5l_fusion_transformer_M3FD_fuse3_fourier.yaml``)
@@ -15,6 +16,8 @@ anchors every reference config ships.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 from mmidet_tpu_torch.models.spec import SECOND_INPUT, LayerDef, ModelSpec
 
@@ -160,3 +163,25 @@ def dryrun_spec(nc: int = 2, fusion_layers: int = 1) -> ModelSpec:
     return ModelSpec(nc=nc, anchors=COCO_ANCHORS, layers=layers,
                      depth_multiple=0.25, width_multiple=0.125,
                      fusion_layers=fusion_layers)
+
+
+# family part of a model's name -> ``two_stream_spec``'s ``fusion``
+_NAMED_FUSION = {"fuse3_fourier": "fourier", "gpt4": "gpt4"}
+
+
+def get_model_spec(name: str, nc: int | None = None,
+                   anchors=None) -> ModelSpec:
+    """Named two-stream models: ``yolov5<scale>_<family>``, for example
+    'yolov5l_fuse3_fourier' and 'yolov5s_gpt4'; ``nc`` and ``anchors``
+    override the defaults."""
+    scale, _, family = name.partition("_")
+    scale = scale.removeprefix("yolov5")
+    if scale not in SCALES or family not in _NAMED_FUSION:
+        raise ValueError(f"model {name!r} is not ported yet")
+    spec = two_stream_spec(scale, _NAMED_FUSION[family])
+    if nc is not None:
+        spec = dataclasses.replace(spec, nc=nc)
+    if anchors is not None:
+        spec = dataclasses.replace(
+            spec, anchors=tuple(tuple(a) for a in anchors))
+    return spec

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmidet_tpu_torch import kernels
 from mmidet_tpu_torch.nn.layers import batchnorm
 
 
@@ -99,17 +100,46 @@ class EnhanceConv(nn.Module):
 class ContourEnhance(nn.Module):
     """CEM: expand x8 -> edge bank -> add -> reduce -> residual.
     Ref: AdaptiveModule3, common.py:751-803 (conv/bn/leaky-relu 0.1).
-    ``fused=True``: BN folded into conv weight and bias (deploy form)."""
+    ``fused=True``: BN folded into conv weight and bias (deploy form).
+    ``use_kernel=True`` (deploy, eval mode, needs ``fused``): the whole
+    module runs as the fused CEM kernel (``nn.cem_cuda``), as ``use_pallas``
+    does in the JAX package; a bf16 module takes the kernel's bf16 form, an
+    f32 module its f32 form.  Same parameters either way."""
 
-    def __init__(self, c: int = 3, fused: bool = False):
+    def __init__(self, c: int = 3, fused: bool = False,
+                 use_kernel: bool = False):
         super().__init__()
+        self.use_kernel = use_kernel
+        self._pack, self._pack_key = None, None
         self.conv2 = nn.Conv2d(c, c * 8, 3, 1, 1, bias=fused)
         self.bn2 = None if fused else batchnorm(c * 8)
         self.sobel = EnhanceConv(c * 8)
         self.conv3 = nn.Conv2d(c * 8, c, 3, 1, 1, bias=fused)
         self.bn3 = None if fused else batchnorm(c)
 
+    def _kernel_forward(self, x):
+        from mmidet_tpu_torch.nn.cem_cuda import fused_cem, pack_cem_weights
+        if self.bn2 is not None or self.bn3 is not None:
+            raise ValueError("the CEM kernel needs the BN-folded module "
+                             "(fused=True or fold_batchnorm)")
+        params = (self.conv2.weight.permute(2, 3, 1, 0), self.conv2.bias,
+                  self.sobel.sobel_factor.flatten(), self.sobel.bias,
+                  self.conv3.weight.permute(2, 3, 1, 0), self.conv3.bias)
+        pack = None
+        if x.device.type == "cuda":
+            # the kernel's weight buffer is kept until a parameter changes
+            key = (x.device, x.dtype, kernels.stamp(self.parameters()))
+            if key != self._pack_key:
+                self._pack = pack_cem_weights(
+                    *(p.to(x.device) for p in params), x.dtype)
+                self._pack_key = key
+            pack = self._pack
+        return fused_cem(x.permute(0, 2, 3, 1), *params,
+                         pack=pack).permute(0, 3, 1, 2)
+
     def forward(self, x):
+        if self.use_kernel and not self.training:
+            return self._kernel_forward(x)
         y = self.conv2(x)
         if self.bn2 is not None:
             y = self.bn2(y)

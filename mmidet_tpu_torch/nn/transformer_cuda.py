@@ -54,6 +54,23 @@ def stack_block_params(blocks) -> dict[str, torch.Tensor]:
     return out
 
 
+def prepare_stack(stacked: dict, device) -> dict[str, torch.Tensor]:
+    """The buffers the kernels read, from stacked weights: matrices bf16,
+    vectors f32, contiguous on ``device``, q/k/v joined into ``wqkv``
+    ``(L, 3d, d)`` and ``bqkv`` ``(L, 3d)``.  A dict that already holds
+    ``wqkv`` is taken as prepared, so a caller may keep the result between
+    calls."""
+    if "wqkv" in stacked:
+        return stacked
+    bf16, f32 = torch.bfloat16, torch.float32
+    with torch.no_grad():
+        ws = {k: t.to(device, f32 if k in _VECTORS else bf16).contiguous()
+              for k, t in stacked.items()}
+        ws["wqkv"] = torch.cat([ws.pop("wq"), ws.pop("wk"), ws.pop("wv")], 1)
+        ws["bqkv"] = torch.cat([ws.pop("bq"), ws.pop("bk"), ws.pop("bv")], 1)
+    return ws
+
+
 def fused_token_transformer_reference(x: torch.Tensor, stacked: dict,
                                       num_heads: int = 8) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (B, 128, d) -> (B, 128, d)
@@ -93,7 +110,8 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
     """(B, 128, d) tokens, pos-emb added -> (B, 128, d) bf16, ``ln_f`` not
     applied.  On a CUDA tensor this launches the kernel (one call, 7
     launches per layer, all on the current stream); on a CPU tensor it runs
-    the plain version."""
+    the plain version.  ``stacked``: ``stack_block_params``' dict, or on a
+    card what ``prepare_stack`` made of it."""
     if x.device.type == "cpu":
         return fused_token_transformer_reference(x, stacked, num_heads)
     if x.device.type != "cuda":
@@ -104,17 +122,16 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
         raise ValueError(f"kernel takes (B, {TOKENS}, d) with d % 8 == 0 "
                          f"and d/heads at most 128; got {tuple(x.shape)} "
                          f"with {num_heads} heads")
-    L = stacked["wq"].shape[0]
-    bf16, f32 = torch.bfloat16, torch.float32
-    ws = {k: t.to(x.device, f32 if k in _VECTORS else bf16).contiguous()
-          for k, t in stacked.items()}
-    for k, shape in (("wo", (L, d, d)), ("w1", (L, 4 * d, d)),
-                     ("w2", (L, d, 4 * d)), ("b1", (L, 4 * d))):
-        if tuple(ws[k].shape) != shape:
-            raise ValueError(f"{k} has shape {tuple(ws[k].shape)}, "
-                             f"expected {shape}")
-    wqkv = torch.cat([ws["wq"], ws["wk"], ws["wv"]], 1).contiguous()
-    bqkv = torch.cat([ws["bq"], ws["bk"], ws["bv"]], 1).contiguous()
+    bf16 = torch.bfloat16
+    ws = prepare_stack(stacked, x.device)
+    L = ws["wo"].shape[0]
+    for k, shape in (("wqkv", (L, 3 * d, d)), ("wo", (L, d, d)),
+                     ("w1", (L, 4 * d, d)), ("w2", (L, d, 4 * d)),
+                     ("b1", (L, 4 * d))):
+        if tuple(ws[k].shape) != shape or ws[k].device != x.device:
+            raise ValueError(f"{k} has shape {tuple(ws[k].shape)} on "
+                             f"{ws[k].device}, expected {shape} on "
+                             f"{x.device}")
     xin = x.to(bf16).contiguous()
     out = torch.empty_like(xin)
     m = b * n
@@ -124,8 +141,8 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
     hdn = torch.empty((m, 4 * d), dtype=bf16, device=x.device)
     fn = kernels.load("token_transformer")
     err = fn(xin.data_ptr(), out.data_ptr(), ws["ln1_scale"].data_ptr(),
-             ws["ln1_bias"].data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-             ws["wo"].data_ptr(), ws["bo"].data_ptr(),
+             ws["ln1_bias"].data_ptr(), ws["wqkv"].data_ptr(),
+             ws["bqkv"].data_ptr(), ws["wo"].data_ptr(), ws["bo"].data_ptr(),
              ws["ln2_scale"].data_ptr(), ws["ln2_bias"].data_ptr(),
              ws["w1"].data_ptr(), ws["b1"].data_ptr(), ws["w2"].data_ptr(),
              ws["b2"].data_ptr(), y.data_ptr(), qkv.data_ptr(),

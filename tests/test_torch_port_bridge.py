@@ -67,6 +67,41 @@ def test_every_leaf_lands_once(jax_vars):
                                           to_torch_layout(arr, kind))
 
 
+def test_every_leaf_of_the_fourier_spec_lands_once():
+    """The flagship grammar (l scale, the only one it exists at): the
+    pattern gate's ``pattern/conv1/kernel`` and ``pattern/conv2/kernel``
+    land on ``conv1.weight``/``conv2.weight``, the names the JAX package's
+    converter computes.  Shapes come from ``jax.eval_shape`` (no init run),
+    values from numpy."""
+    kw = dict(scale="l", fusion="fourier", nc=2, fusion_layers=1)
+    model = JaxDetector(spec=jax_spec(**kw), aux_mode="off")
+    z = np.zeros((1, 64, 64, 3), np.float32)
+    shapes = jax.eval_shape(
+        lambda k: model.init({"params": k}, z, z, train=False),
+        jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    v = jax.tree_util.tree_map(
+        lambda a: rng.normal(0, 0.1, a.shape).astype(np.float32),
+        dict(shapes))
+    port = TwoStreamDetector(two_stream_spec(**kw))
+    used = from_jax_variables(port, v)
+    assert len(used) == len(jax.tree_util.tree_leaves(v))
+    assert set(used) == {k for k in port.state_dict()
+                         if not k.endswith("num_batches_tracked")}
+    sd = port.state_dict()
+    gate = v["params"]["l6_GPT1_fourier"]["pattern"]
+    for conv in ("conv1", "conv2"):
+        path = ("l6_GPT1_fourier", "pattern", conv, "kernel")
+        key, kind = torch_key(path)
+        assert key == f"model.6.{conv}.weight" == _torch_key(path,
+                                                             "params")[0]
+        np.testing.assert_array_equal(
+            sd[key].numpy(), to_torch_layout(gate[conv]["kernel"], kind))
+    for coll in ("params", "batch_stats"):
+        for path, _ in _flat(v[coll]):
+            assert torch_key(path)[0] == _torch_key(path, coll)[0]
+
+
 def test_focus_and_sobel_layouts_round_trip(jax_vars):
     port = _port()
     from_jax_variables(port, jax_vars)

@@ -13,6 +13,7 @@ import torch
 from mmidet_tpu_torch.deploy.serve import DetectionService
 from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.zoo import two_stream_spec
+from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda
 from mmidet_tpu_torch.nn import transformer_cuda as tc
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 from mmidet_tpu_torch.ops import nms_cuda
@@ -138,3 +139,187 @@ def test_detection_service_defaults_to_the_card(cuda):
     recs = svc.predict(buf.getvalue(), buf.getvalue())
     assert nms_cuda.nms_greedy.launches == before + 1
     assert isinstance(recs, list)
+
+
+def _cem_params(gen, device):
+    """Random fused-CEM parameters, JAX layouts (HWIO); biases nonzero so
+    that zero padding against bias shows at the borders."""
+    def rn(*shape, scale, base=0.0):
+        return (base + scale * torch.randn(*shape, generator=gen)).to(device)
+    return (rn(3, 3, 3, 24, scale=0.3), rn(24, scale=0.5),
+            rn(24, scale=0.4, base=1.0), rn(24, scale=0.5),
+            rn(3, 3, 24, 3, scale=0.2), rn(3, scale=0.5))
+
+
+# shapes that cross tile borders (16x32 tiles): one tile exactly, ragged in
+# both directions, narrower and lower than one tile, a single pixel
+@pytest.mark.parametrize("shape", [(2, 16, 32, 3), (2, 80, 80, 3),
+                                   (1, 37, 53, 3), (2, 352, 608, 3),
+                                   (3, 5, 7, 3), (1, 1, 1, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cem_kernel_matches_plain(cuda, shape, dtype):
+    """f32: sums differ in order only (1e-4 of the output range).  bf16:
+    five rounding points, one flipped rounding of y + e moves z by one
+    bf16 step (2^-8 relative), so 2% of the output range."""
+    gen = torch.Generator().manual_seed(shape[1])
+    p = _cem_params(gen, cuda)
+    x = torch.randn(*shape, generator=gen).to(cuda, dtype)
+    before = cem_cuda.fused_cem.launches
+    got = cem_cuda.fused_cem(x, *p).float()
+    ref = cem_cuda.fused_cem_reference(x, *p).float()
+    torch.cuda.synchronize()
+    assert cem_cuda.fused_cem.launches == before + 1
+    assert got.shape == x.shape
+    tol = 1e-4 if dtype == torch.float32 else 0.02
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_cem_kernel_rejects_bad_inputs(cuda):
+    p = _cem_params(torch.Generator().manual_seed(0), cuda)
+    with pytest.raises(ValueError, match="takes \\(B, H, W, 3\\)"):
+        cem_cuda.fused_cem(torch.zeros(1, 8, 8, 4, device=cuda), *p)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        cem_cuda.fused_cem(torch.zeros(1, 8, 8, 3, device=cuda,
+                                       dtype=torch.float16), *p)
+    with pytest.raises(ValueError, match="w2 has shape"):
+        cem_cuda.fused_cem(torch.zeros(1, 8, 8, 3, device=cuda),
+                           p[0][..., :8], *p[1:])
+
+
+def _merge_inputs(d, hw, b, L, gen, device, gated):
+    rgb = torch.randn(b, *hw, d, generator=gen).to(device, torch.bfloat16)
+    ir = (0.3 * torch.randn(b, *hw, d, generator=gen) + 0.2).to(
+        device, torch.bfloat16)
+    st = _stack(d, L, gen, device)
+    pos = (0.2 * torch.randn(1, 128, d, generator=gen)).to(device)
+    lns = (1 + 0.2 * torch.randn(d, generator=gen)).to(device)
+    lnb = (0.2 * torch.randn(d, generator=gen)).to(device)
+    gate = None
+    if gated:
+        gate = {"g1": (torch.randn(d, 8, generator=gen) / d ** 0.5).to(
+                    device),
+                "g2": (torch.randn(8, d, generator=gen) / 8 ** 0.5).to(
+                    device)}
+    return rgb, ir, st, pos, lns, lnb, 8, gate
+
+
+# d = 128..1024 as the flagship's levels; 20x20 has overlapping pool
+# windows; 5x5 and 3x11 are maps the TPU kernel refuses (H*W % 8 != 0) and
+# this one runs; 1x1 pools and upsamples a single pixel.  Gate: max error
+# within 2% of the merged streams' range, K1's gate (the merge adds one
+# more bf16 rounding to K1's compounding ones).
+@pytest.mark.parametrize("d,hw,gated", [
+    (128, (40, 40), True), (128, (24, 24), False), (256, (20, 20), False),
+    (512, (16, 16), True), (1024, (20, 20), False), (64, (5, 5), False),
+    (64, (3, 11), True), (64, (1, 1), False), (96, (33, 17), True)])
+def test_merge_kernel_matches_plain(cuda, d, hw, gated):
+    gen = torch.Generator().manual_seed(d + hw[0])
+    args = _merge_inputs(d, hw, 3, 2, gen, cuda, gated)
+    before = fusion_cuda.fused_gpt_merge.launches
+    got = fusion_cuda.fused_gpt_merge(*args)
+    ref = fusion_cuda.fused_gpt_merge_reference(*args)
+    torch.cuda.synchronize()
+    assert fusion_cuda.fused_gpt_merge.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16
+        err = float((g.float() - r.float()).abs().max())
+        assert err <= 0.02 * float(r.float().abs().max())
+
+
+def test_merge_kernel_rejects_bad_shapes(cuda):
+    args = list(_merge_inputs(64, (8, 8), 1, 1,
+                              torch.Generator().manual_seed(0), cuda, False))
+    with pytest.raises(ValueError, match="share one"):
+        fusion_cuda.fused_gpt_merge(args[0], args[1][:, :4], *args[2:])
+    bad = torch.zeros(1, 8, 8, 36, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="merge kernel takes"):
+        fusion_cuda.fused_gpt_merge(bad, bad, *args[2:])
+    wide = torch.zeros(1, 8, 8, 1280, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="merge kernel takes"):
+        fusion_cuda.fused_gpt_merge(wide, wide, *args[2:])
+
+
+def test_fourier_model_kernel_path_matches_plain_path(cuda):
+    """The l-scale fourier grammar at small depth in f32, CEM and merge
+    kernels on the card against their plain versions on the CPU (the merge
+    rounds to bf16 inside on both)."""
+    torch.manual_seed(0)
+    model = fold_batchnorm(TwoStreamDetector(
+        two_stream_spec("l", "fourier", nc=2, fusion_layers=2),
+        kernel_cem=True, kernel_merge=True)).eval()
+    gen = torch.Generator().manual_seed(1)
+    rgb, ir = torch.rand(2, 64, 64, 3, generator=gen), torch.rand(
+        2, 64, 64, 3, generator=gen)
+    with torch.no_grad():
+        want = model(rgb, ir)["pred"]
+        before = (cem_cuda.fused_cem.launches,
+                  fusion_cuda.fused_gpt_merge.launches,
+                  tc.fused_token_transformer.launches)
+        got = model.to(cuda)(rgb.to(cuda), ir.to(cuda))["pred"].cpu()
+    assert (cem_cuda.fused_cem.launches,
+            fusion_cuda.fused_gpt_merge.launches,
+            tc.fused_token_transformer.launches) == (
+                before[0] + 1, before[1] + 4, before[2])
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_modules_rebuild_their_kernel_weights_when_a_parameter_changes(cuda):
+    """The CEM's packed buffer and the fusion's prepared stack are kept
+    between forwards and follow an in-place write, a cast and a move."""
+    from mmidet_tpu_torch.nn.cem import ContourEnhance
+    from mmidet_tpu_torch.nn.fusion import PatternFusion
+    torch.manual_seed(0)
+    gen = torch.Generator().manual_seed(1)
+    cem = ContourEnhance(3, fused=True, use_kernel=True).eval().to(cuda)
+    fus = PatternFusion(64, n_layer=2, merge_kernel=True).eval().to(cuda)
+    x = torch.rand(2, 3, 24, 40, generator=gen).to(cuda)
+    rgb = torch.randn(2, 64, 12, 12, generator=gen).to(cuda)
+    ir = torch.randn(2, 64, 12, 12, generator=gen).to(cuda)
+
+    def fresh():
+        """The wrappers on the parameters as they are now, nothing kept."""
+        c = cem_cuda.fused_cem(
+            x.permute(0, 2, 3, 1).to(cem.conv2.weight.dtype),
+            cem.conv2.weight.permute(2, 3, 1, 0), cem.conv2.bias,
+            cem.sobel.sobel_factor.flatten(), cem.sobel.bias,
+            cem.conv3.weight.permute(2, 3, 1, 0), cem.conv3.bias)
+        gate = {"g1": fus.conv1.weight.flatten(1).T,
+                "g2": fus.conv2.weight.flatten(1).T}
+        f = fusion_cuda.fused_gpt_merge(
+            rgb.permute(0, 2, 3, 1), ir.permute(0, 2, 3, 1),
+            tc.stack_block_params(fus.trans_blocks), fus.pos_emb,
+            fus.ln_f.weight, fus.ln_f.bias, 8, gate)
+        return c.permute(0, 3, 1, 2).float(), f[0].permute(0, 3, 1, 2).float()
+
+    def kept(dtype):
+        return (cem(x.to(dtype)).float(),
+                fus(rgb.to(dtype), ir.to(dtype))[0].float())
+
+    with torch.no_grad():
+        first = kept(torch.float32)
+        pack, stack = cem._pack, fus._stack
+        again = kept(torch.float32)
+        assert cem._pack is pack and fus._stack is stack
+        for a, b, c in zip(first, again, fresh()):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        cem.conv2.bias.add_(0.5)
+        fus.trans_blocks[1].mlp[2].bias.add_(0.5)
+        changed = kept(torch.float32)
+        assert cem._pack is not pack and fus._stack is not stack
+        for a, b, c in zip(first, changed, fresh()):
+            assert not torch.equal(a, b) and torch.equal(b, c)
+        cem.to(torch.bfloat16)
+        x = x.to(torch.bfloat16)
+        assert torch.equal(cem(x).float(), fresh()[0])
+
+
+def test_cem_kernel_rejects_a_bad_pack(cuda):
+    p = _cem_params(torch.Generator().manual_seed(0), cuda)
+    x = torch.zeros(1, 8, 8, 3, device=cuda)
+    good = cem_cuda.pack_cem_weights(*p, x.dtype)
+    assert torch.equal(cem_cuda.fused_cem(x, *p, pack=good),
+                       cem_cuda.fused_cem(x, *p))
+    with pytest.raises(ValueError, match="pack must be"):
+        cem_cuda.fused_cem(x, *p, pack=good[:-1])
+    with pytest.raises(ValueError, match="pack must be"):
+        cem_cuda.fused_cem(x, *p, pack=good.cpu())

@@ -75,10 +75,10 @@ def ref():
             "folded_model": folded_f32}
 
 
-def _port(v, kernel_fusion=False, fold=False, truncate_at=None):
+def _port(v, kernel_fusion=False, fold=False, truncate_at=None, **flags):
     model = TwoStreamDetector(two_stream_spec("t", "gpt4", fusion_layers=2),
                               kernel_fusion=kernel_fusion,
-                              truncate_at=truncate_at)
+                              truncate_at=truncate_at, **flags)
     from_jax_variables(model, v)
     return (fold_batchnorm(model) if fold else model).eval()
 
@@ -114,6 +114,18 @@ def test_deploy_path_matches_jax(ref):
     model = _port(ref["v"], kernel_fusion=True, fold=True)
     assert all(m.bn is None for m in model.modules() if hasattr(m, "bn"))
     _check(_run(model, ref), ref["deploy"], DEPLOY_TOL)
+
+
+def test_cem_and_merge_kernel_flags_match_jax_deploy(ref):
+    """The same JAX deploy output as above (K1 inside unmerged fusion
+    blocks) against the port with the CEM kernel and the merge kernel on
+    (their plain versions on the CPU): the merge rounds the streams to bf16
+    once more per level, so the gate is the merge kernel's own against its
+    unfused module, 0.06 (tests/test_fusion_pallas.py)."""
+    model = _port(ref["v"], fold=True, kernel_cem=True, kernel_merge=True)
+    _check(_run(model, ref), ref["deploy"], dict(rtol=0.06, atol=0.06))
+    with pytest.raises(ValueError, match="BN-folded"):
+        _run(_port(ref["v"], kernel_cem=True), ref)
 
 
 def _png(arr):

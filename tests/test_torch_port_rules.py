@@ -11,7 +11,7 @@ import torch
 
 from mmidet_tpu_torch import kernels
 from mmidet_tpu_torch.deploy.serve import DetectionService
-from mmidet_tpu_torch.nn import transformer_cuda
+from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda, transformer_cuda
 from mmidet_tpu_torch.ops import nms_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -71,6 +71,50 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no NMS kernel"):
         nms_cuda.nms_greedy(torch.zeros(1, 128, 4, device="meta"),
                             torch.zeros(1, 128, device="meta"))
+    with pytest.raises(ValueError, match="no CEM kernel"):
+        cem_cuda.fused_cem(torch.zeros(1, 8, 8, 3, device="meta"),
+                           *[None] * 6)
+    s = torch.zeros(1, 8, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="no GPT-merge kernel"):
+        fusion_cuda.fused_gpt_merge(s, s, {}, None, None, None)
+
+
+def test_every_kernel_is_registered_counted_and_has_a_plain_version():
+    """Four TPU kernels, four CUDA sources; each wrapper counts its
+    launches and has its plain PyTorch version beside it."""
+    assert set(kernels.SIGNATURES) == {"token_transformer", "nms_greedy",
+                                       "cem", "gpt_merge"}
+    for mod, name in ((transformer_cuda, "fused_token_transformer"),
+                      (nms_cuda, "nms_greedy"), (cem_cuda, "fused_cem"),
+                      (fusion_cuda, "fused_gpt_merge")):
+        assert isinstance(getattr(mod, name).launches, int)
+        assert callable(getattr(mod, name + "_reference"))
+
+
+def test_kernel_sources_call_no_library():
+    """The CUDA sources hold their own products, convolutions, pooling and
+    resampling: no cuBLAS, cuDNN or torch header is included."""
+    for src in sorted(kernels.CSRC.glob("*.cu*")):
+        includes = [ln for ln in src.read_text().splitlines()
+                    if ln.lstrip().startswith("#include")]
+        assert includes
+        for word in ("cublas", "cudnn", "torch", "ATen", "cutlass"):
+            assert not any(word in ln for ln in includes), (src.name, word)
+
+
+def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edit to ``csrc/*.cuh`` renames every library, so that a stale
+    build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in kernels.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {n: kernels._lib_path(n).name for n in kernels.SIGNATURES}
+    hdr = csrc / "token_transformer.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    after = {n: kernels._lib_path(n).name for n in kernels.SIGNATURES}
+    assert all(before[n] != after[n] for n in before)
 
 
 def test_kernel_sources_are_in_the_package():
