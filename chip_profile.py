@@ -5,6 +5,10 @@
 
 Builds the same seeded deploy models as ``chip_smoke.py`` (BN folded, bf16,
 batch 16 at 640x640) and prints JSON lines:
+  * ``layer_gemm_tiles``: the layer GEMM that K1 and K4 share, each of a
+    layer's four products on each tile the kernel offers, at the main
+    paths' shapes (TFLOP/s of device time, beside the tile the layers pick
+    and ``F.linear``);
   * ``memory_format``: yolov5s_gpt4's forward time in NCHW and in
     channels_last memory format, timed in turns (nchw, cl, cl, nchw) with
     CUDA events;
@@ -12,7 +16,8 @@ batch 16 at 640x640) and prints JSON lines:
     ``torch.profiler``: device time by kernel group (the hand-written
     kernels, convolutions, PyTorch's pooling and resampling, the rest),
     the host wall time of the window and the device's idle share of it;
-    the rest also by the PyTorch operator that launched it.  yolov5s_gpt4
+    the layer GEMM of K1 and K4 by product (its epilogue) and by tile; the
+    rest also by the PyTorch operator that launched it.  yolov5s_gpt4
     runs K1 and K2; yolov5l_fuse3_fourier runs K3, K4 and K2, and once more
     with K1, the cuDNN CEM and the unfused pooling and upsampling.
 """
@@ -20,6 +25,8 @@ batch 16 at 640x640) and prints JSON lines:
 from __future__ import annotations
 
 import json
+import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -27,8 +34,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # the layer kernels of csrc/token_transformer.cuh run inside K1 or inside K4,
-# whichever the route launches
+# whichever the route launches (layernorm_kernel<chunks>,
+# layernorm_kernel_wide, gemm_kernel<columns, warpgroups, stages,
+# epilogue>, attention_kernel<head width>)
 _LAYERS = ("layernorm_kernel", "gemm_kernel", "attention_kernel")
+# gemm_kernel's epilogue argument names the layer's product
+_GEMM = re.compile(r"gemm_kernel<(\d+), *(\d+), *(\d+), *(\d+)>")
+_PRODUCT = {"0": "qkv (bias)", "1": "w1 (bias + GELU)",
+            "2": "wo and w2 (bias + residual)"}
 # PyTorch's own pooling and resampling kernels carry "nhwc" in their names
 # as cuDNN's convolutions do, so they are matched first
 _POOL = ("pool_resample", ("adaptive_average_pool", "max_pool", "upsample_"))
@@ -41,6 +54,51 @@ GROUPS_K4 = (("k3_fused_cem", ("cem_kernel",)),
              ("k4_merge", ("merge_kernel",)),
              ("k4_layers", _LAYERS),
              ("k2_nms_greedy", ("nms_kernel",)), _POOL, _CONV)
+
+
+# the tiles of csrc/token_transformer.cuh's kTiles, in its order
+TILES = ("128x256, 4 stages", "128x128, 4 stages",
+         "128x128, 3 stages, 2 blocks per SM", "128x64, 4 stages",
+         "64x64, 4 stages")
+
+
+def gemm_tiles(torch, card: str) -> None:
+    """The layer GEMM's four products on every tile at the main paths'
+    shapes (B = 16, so M = 2048, at d = 64 .. 1024; and batch 1 at
+    d = 1024): TFLOP/s of device time per tile, on the tile the layers
+    pick, and for F.linear (no epilogue): the data behind pick_tile."""
+    import torch.nn.functional as F
+
+    from chip_smoke import device_ms
+    from mmidet_tpu_torch import kernels
+    fn = kernels.load("layer_gemm_tile")
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = [(2048, d) for d in (64, 128, 256, 512, 1024)] + [(128, 1024)]
+    for m, d in shapes:
+        for prod, n, k, epi in (("qkv", 3 * d, d, 0), ("wo", d, d, 2),
+                                ("w1", 4 * d, d, 1), ("w2", d, 4 * d, 2)):
+            bf16 = torch.bfloat16
+            a = torch.randn(m, k, generator=gen, device=dev).to(bf16)
+            w = (torch.randn(n, k, generator=gen, device=dev)
+                 / math.sqrt(k)).to(bf16)
+            bias = 0.2 * torch.randn(n, generator=gen, device=dev)
+            c = torch.randn(m, n, generator=gen, device=dev).to(bf16)
+            args = (a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                    c.data_ptr(), c.data_ptr(), m, n, k, epi)
+            flops = 2 * m * n * k
+            rec = {}
+            for i, name in [(-1, "picked")] + list(enumerate(TILES)):
+                def run(i=i):
+                    kernels.check("layer_gemm_tile", fn(*args, i, stream))
+                rec[name] = flops / device_ms(run, reps=10) / 1e9
+            b16 = bias.to(bf16)
+            rec["F.linear"] = flops / device_ms(
+                lambda: F.linear(a, w, b16), reps=10) / 1e9
+            print(json.dumps({"phase": "layer_gemm_tiles", "card": card,
+                              "m": m, "d": d, "product": prod, "n": n,
+                              "k": k, "tflops_by_tile": rec}), flush=True)
 
 
 def group_of(name: str, groups) -> str:
@@ -81,17 +139,37 @@ def breakdown(torch, model, rgb, ir, groups, label: dict) -> None:
         g = group_of(name, groups)
         return "convolution" if g == "other" and name in conv_kernels else g
 
+    # Device time per kernel, each instant charged to one kernel.  The layer
+    # kernels are programmatic dependent launches: each is scheduled while
+    # the kernel before it drains and waits for it, so their traced
+    # intervals overlap that kernel's.  The overlap is charged to the
+    # earlier kernel, which does the work then, and the charges sum to the
+    # time the card was busy.
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    reach = float("-inf")
     by_group: dict[str, float] = {}
     launches: dict[str, int] = {}
-    top: dict[str, tuple] = {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue  # host-side ops; their kernels are listed on their own
-        dev_us = evt.self_device_time_total
-        g = group(evt.key)
-        by_group[g] = by_group.get(g, 0.0) + dev_us / 1e3
-        launches[g] = launches.get(g, 0) + evt.count
-        top[evt.key[:80]] = (dev_us / 1e3, evt.count)
+    top: dict[str, list] = {}
+    gemm: dict[str, list] = {}  # the layer GEMM by product and by tile
+    for evt in kernels:
+        own_ms = max(0.0, evt.time_range.end
+                     - max(evt.time_range.start, reach)) / 1e3
+        reach = max(reach, evt.time_range.end)
+        g = group(evt.name)
+        by_group[g] = by_group.get(g, 0.0) + own_ms
+        launches[g] = launches.get(g, 0) + 1
+        keys = [evt.name[:80]]
+        m = _GEMM.search(evt.name)
+        if m is not None:
+            keys += [_PRODUCT[m.group(4)],
+                     f"tile {64 * int(m.group(2))}x{m.group(1)}, "
+                     f"{m.group(3)} stages"]
+        for i, key in enumerate(keys):
+            acc = (top if i == 0 else gemm).setdefault(key, [0.0, 0])
+            acc[0] += own_ms
+            acc[1] += 1
     # the "other" group by the PyTorch operator that launched each kernel
     other_by_op: dict[str, list] = {}
     for evt in cpu_ops:
@@ -106,6 +184,7 @@ def breakdown(torch, model, rgb, ir, groups, label: dict) -> None:
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": (1 - busy / wall_ms) if busy else "not measured",
         "device_ms_by_group": by_group, "launches_by_group": launches,
+        "layer_gemm_ms_and_launches": gemm or "no layer GEMM launched",
         "top_kernels_ms_and_launches": dict(
             sorted(top.items(), key=lambda kv: -kv[1][0])[:14]),
         "other_by_operator_ms_and_launches": dict(
@@ -134,6 +213,7 @@ def main() -> int:
     ir = torch.rand(B, S, S, 3, generator=gen, device=dev)
     label = {"card": card, "batch": B, "img": S}
 
+    gemm_tiles(torch, card)
     model = build_model(torch, get_model_spec("yolov5s_gpt4")).to(
         dev, torch.bfloat16)
     with torch.inference_mode():

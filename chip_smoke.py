@@ -6,28 +6,37 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from ``mmidet_tpu_torch/csrc`` (nvcc);
-  3. K1, the fused token transformer, against its plain PyTorch version at
+     ptxas's register count of every kernel;
+  3. the layer GEMM that K1 and K4 share (``layer_gemm``), alone, for the
+     four products of a layer at B = 16 (M = 2048), d = 512 and 1024, each
+     epilogue against its plain version: device time, TFLOP/s and share of
+     the bf16 peak, beside ``F.linear`` plus the same epilogue;
+  4. K1, the fused token transformer, against its plain PyTorch version at
      the main paths' shapes (B = 16, 128 tokens, L = 8, d = 64..1024), with
      kernel, plain, library (torch.matmul + SDPA) and bound times;
-  4. K2, greedy NMS, against its plain version (B = 16, K = 4096,
+  5. K2, greedy NMS, against its plain version (B = 16, K = 4096,
      max_det = 300): identical indices;
-  5. K3, the fused CEM, against its plain version at (16, 640, 640, 3) in
+  6. K3, the fused CEM, against its plain version at (16, 640, 640, 3) in
      bf16 and f32 and at an odd shape that crosses tile borders; library
-     time: the port's unfused ``ContourEnhance`` (cuDNN);
-  6. K4, the fused GPT merge, against its plain version at the flagship's
+     time: the port's unfused ``ContourEnhance`` (cuDNN; TF32 off for the
+     f32 form);
+  7. K4, the fused GPT merge, against its plain version at the flagship's
      four levels (gated at C = 128; 256, 512, 1024; B = 16, L = 8); library
      time: adaptive_avg_pool + cuBLAS/SDPA transformer + interpolate + adds;
-  7. the first main path: yolov5s_gpt4 at full width and depth, seeded
+  8. the first main path: yolov5s_gpt4 at full width and depth, seeded
      random weights, BN folded, bf16, batch 16 at 640x640, forward + NMS
      through K1 and K2 (launch counts asserted), throughput; the same path
      in f32 against the plain versions on the CPU at a small input; then
      ``DetectionService`` answers 3 requests;
-  8. the flagship path: yolov5l_fuse3_fourier, the same way, through K3, K4
+  9. the flagship path: yolov5l_fuse3_fourier, the same way, through K3, K4
      and K2 (``kernel_cem``, ``kernel_merge``), and timed in turns against
      the same model with those two flags off and ``kernel_fusion`` on (K1,
      cuDNN CEM, unfused pooling and upsampling);
-  9. the ``kernels`` summary line, the card line, and the final
+  10. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
+Times: ``ms`` is a CUDA-event median around each call (the host's time
+between launches included, as a caller sees it); ``device_ms`` queues the
+call behind a spin kernel so that only the card's time counts.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+SPIN_CYCLES = 10_000_000   # about 5 ms at the H100's clock: device_ms
 # K1: max |kernel - plain| <= 2% of max |plain|.  The two differ only in
 # the order of f32 sums, but every layer rounds to bf16 (2^-8 relative) at
 # six points, so one flipped rounding compounds through 8 dependent layers.
@@ -58,6 +68,9 @@ K1_TOL = 0.02
 K3_TOL = {"bfloat16": 0.02, "float32": 1e-4}
 # K4: K1's gate; the merge adds one bf16 rounding to K1's compounding ones.
 K4_TOL = 0.02
+# the layer GEMM alone: sums in another order flip single bf16 roundings
+# (2^-8 of a value), nothing compounds: 1e-2 of max |plain|
+GEMM_TOL = 1e-2
 PATH_TOL = 2e-2                 # f32 model, kernels vs plain versions
 LEVELS = ((128, 160, True), (256, 80, False), (512, 40, False),
           (1024, 20, False))    # flagship fusion levels at 640: C, H = W, gate
@@ -91,6 +104,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn()``: a spin kernel queued ahead of the
+    first event keeps the card busy while the host queues ``fn``'s
+    launches, so the host's own time between them (Python, argument
+    checks, launch calls) is not counted, as it is in ``time_ms``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def bound(flops: float, nbytes: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -98,6 +132,67 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 
 # ------------------------------------------------------------------ phase 3
+def phase_layer_gemm(torch, dev, card: str):
+    """The four products of one layer at B = 16, d = 512 and 1024, through
+    the standalone entry point of the GEMM that K1 and K4 run."""
+    import torch.nn.functional as F
+
+    from mmidet_tpu_torch.nn import transformer_cuda as tc
+    M, bf16 = 16 * 128, torch.bfloat16
+    gen = torch.Generator().manual_seed(8)
+    recs = []
+    for d in (512, 1024):
+        for prod, n, k, epi in (("qkv", 3 * d, d, "bias"),
+                                ("wo", d, d, "residual"),
+                                ("w1", 4 * d, d, "gelu"),
+                                ("w2", d, 4 * d, "residual")):
+            a = torch.randn(M, k, generator=gen).to(dev, bf16)
+            w = (torch.randn(n, k, generator=gen) / math.sqrt(k)).to(dev, bf16)
+            bias = (0.2 * torch.randn(n, generator=gen)).to(dev)
+            res = None
+            if epi == "residual":
+                res = torch.randn(M, n, generator=gen).to(dev, bf16)
+            ref = tc.layer_gemm_reference(a, w, bias, epi, res).float()
+            out = tc.layer_gemm(a, w, bias, epi,
+                                None if res is None else res.clone()).float()
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            top = float(ref.abs().max())
+            scratch = None if res is None else res.clone()
+            bias16 = bias.to(bf16)
+
+            def library(a=a, w=w, bias16=bias16, epi=epi, res=res):
+                y = F.linear(a, w, bias16)
+                return (F.gelu(y) if epi == "gelu"
+                        else res + y if epi == "residual" else y)
+            flops = 2 * M * n * k
+            nbytes = 2 * (M * k + n * k + M * n * (2 if res is not None
+                                                   else 1)) + 4 * n
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            ms = device_ms(lambda: tc.layer_gemm(a, w, bias, epi, scratch))
+            lib_ms = device_ms(library)
+            rec = {"d": d, "product": prod, "m": M, "n": n, "k": k,
+                   "epilogue": epi, "max_abs_err": err, "max_abs_ref": top,
+                   "tol": GEMM_TOL, "ms": ms,
+                   "wall_ms": time_ms(
+                       lambda: tc.layer_gemm(a, w, bias, epi, scratch)),
+                   "tflops": flops / ms / 1e9,
+                   "peak_share": flops / ms * 1e3 / PEAK_BF16_FLOPS,
+                   "library_ms": lib_ms,
+                   "library_tflops": flops / lib_ms / 1e9,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "card": card, "ok": err <= GEMM_TOL * top}
+            emit({"phase": "layer_gemm", **rec})
+            if not rec["ok"]:
+                raise AssertionError(f"layer GEMM {prod} at d={d} disagrees "
+                                     f"with its plain version: {err} at "
+                                     f"|ref| {top}")
+            recs.append(rec)
+            del a, w, res, ref, out, scratch
+    return recs
+
+
+# ------------------------------------------------------------------ phase 4
 def random_stack(d: int, L: int, gen, device):
     """Per-layer weights in torch Linear layout; LN and bias vectors
     randomised (normal * 0.2) so that bias handling is exercised."""
@@ -179,6 +274,8 @@ def phase_k1(torch, dev):
             "max_abs_ref": float(ref.abs().max()),
             "library_max_abs_err": float((lib - ref).abs().max()),
             "ms": time_ms(lambda: tc.fused_token_transformer(x, prep, heads)),
+            "device_ms": device_ms(
+                lambda: tc.fused_token_transformer(x, prep, heads)),
             "ms_with_stacking": time_ms(
                 lambda: tc.fused_token_transformer(x, st, heads)),
             "plain_ms": time_ms(
@@ -195,7 +292,7 @@ def phase_k1(torch, dev):
     return shapes
 
 
-# ------------------------------------------------------------------ phase 4
+# ------------------------------------------------------------------ phase 5
 def nms_pool(torch, B: int, K: int, gen, n_cls: int = 6):
     """Seeded pool of class-offset boxes with distinct scores (10% of the
     slots invalid, at -inf)."""
@@ -236,8 +333,21 @@ def phase_k2(torch, dev):
     return rec
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
+def time_f32_library(torch, fn) -> float:
+    """``time_ms`` of a cuDNN call in true f32 (TF32 off, as the f32
+    comparisons run)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return time_ms(fn)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def phase_k3(torch, dev):
+    import copy
+
     from mmidet_tpu_torch.nn import cem_cuda
     from mmidet_tpu_torch.nn.cem import ContourEnhance
     gen = torch.Generator().manual_seed(6)
@@ -280,6 +390,7 @@ def phase_k3(torch, dev):
         mod.sobel.bias.copy_(params[3])
         mod.conv3.weight.copy_(params[4].permute(3, 2, 0, 1))
         mod.conv3.bias.copy_(params[5])
+    mod32 = copy.deepcopy(mod).eval()  # the f32 form's library yardstick
     mod = mod.to(torch.bfloat16).eval()
     x_nchw = x.permute(0, 3, 1, 2)
     x32 = x.float()
@@ -318,6 +429,11 @@ def phase_k3(torch, dev):
                "f32_form": {
                    "ms": time_ms(lambda: cem_cuda.fused_cem(
                        x32, *params, pack=pack32)),
+                   "plain_ms": time_ms(
+                       lambda: cem_cuda.fused_cem_reference(x32, *params),
+                       reps=5, warmup=1),
+                   "library_ms": time_f32_library(
+                       torch, lambda: mod32(x32.permute(0, 3, 1, 2))),
                    "bound_ms": f32_bound_ms, "bound_by": f32_bound_by},
                "checks": checks, "ok": all(c["ok"] for c in checks)}
     emit({"phase": "k3_fused_cem", **rec})
@@ -326,7 +442,7 @@ def phase_k3(torch, dev):
     return rec
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 7
 def library_merge(torch, rgb, ir, st, pos, lns, lnb, heads, gate):
     """The same function from PyTorch's own operators, bf16, on NCHW views
     of the NHWC streams: a yardstick, never called by the port."""
@@ -400,6 +516,7 @@ def phase_k4(torch, dev):
         rec = {"d": d, "hw": hw, "gated": gated, "max_abs_err": err,
                "max_abs_ref": top, "library_max_abs_err": lib_err,
                "ms": time_ms(lambda: fc.fused_gpt_merge(*kept)),
+               "device_ms": device_ms(lambda: fc.fused_gpt_merge(*kept)),
                "ms_with_stacking": time_ms(
                    lambda: fc.fused_gpt_merge(*args)),
                "plain_ms": time_ms(
@@ -419,7 +536,7 @@ def phase_k4(torch, dev):
     return levels
 
 
-# -------------------------------------------------------------- phases 7, 8
+# -------------------------------------------------------------- phases 8, 9
 def build_model(torch, spec, seed: int = 0, **flags):
     """Seeded torch init; the fusion transformers' LN and bias parameters
     (and pos-emb) randomised to normal * 0.2, as the JAX package's kernel
@@ -638,11 +755,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     secs = kernels.build_all()
-    regs = [ln.strip() for n in kernels.SIGNATURES
+    regs = [ln.strip() for n in kernels.LIBRARIES
             for ln in kernels.build_log(n).splitlines() if "Used" in ln]
-    emit({"phase": "build", "seconds": secs, "libraries":
-          sorted(kernels.SIGNATURES), "ptxas": regs})
+    emit({"phase": "build", "seconds": secs,
+          "libraries": list(kernels.LIBRARIES), "ptxas": regs})
 
+    phase_layer_gemm(torch, dev, card)
     k1 = phase_k1(torch, dev)
     k2 = phase_k2(torch, dev)
     k3 = phase_k3(torch, dev)

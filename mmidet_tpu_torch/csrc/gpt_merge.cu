@@ -41,9 +41,10 @@
 // stream read once and written once, the weights read once, and K1's
 // operations.  At the flagship's P2 level (B = 16, 160x160x128) the bytes
 // decide: 419 MB, 0.127 ms; at P4 and P5 the transformer's operations, as
-// K1.  This design reads the streams a second time in merge_kernel (half
-// as many bytes again at P2) and makes 5 + 7 L launches: both are overhead
-// above that bound.
+// K1, and there the shared layer code's TMA + wgmma GEMM does the work
+// (token_transformer.cuh).  This design reads the streams a second time in
+// merge_kernel (half as many bytes again at P2) and makes 5 + 7 L launches:
+// both are overhead above that bound.
 
 #include "token_transformer.cuh"
 
@@ -205,7 +206,7 @@ extern "C" {
 // f32; g1 (C, 8), g2 (8, C) bf16 (read only when gated); lnf_s, lnf_b (C,)
 // f32; the layer stacks and the scratch y, qkv, ctx, hdn as tt_run_layers
 // takes them; tok (B, 128, C) bf16 scratch.  C % 8 == 0, C / heads at most
-// 128, 2B at most 65535.  Returns the first CUDA error, or 0.
+// 128, 2B at most 65535.  Returns the first error, or 0.
 int gpt_merge_forward(const void* rgb, const void* ir, void* rgb_out,
                       void* ir_out, const void* pos, const void* g1,
                       const void* g2, const void* lnf_s, const void* lnf_b,
@@ -228,12 +229,10 @@ int gpt_merge_forward(const void* rgb, const void* ir, void* rgb_out,
   gate_pos_kernel<<<row_blocks, 256, 0, st>>>(
       t, (const bf16*)g1, (const bf16*)g2, (const float*)pos, M, C, gated);
   TT_CHECK(cudaGetLastError());
-  TT_CHECK((cudaError_t)tt_run_layers(t, ln1s, ln1b, wqkv, bqkv, wo, bo, ln2s,
-                                      ln2b, w1, b1, w2, b2, y, qkv, ctx, hdn,
-                                      B, C, L, heads, st));
-  layernorm_kernel<<<row_blocks, 256, 0, st>>>(
-      t, (const float*)lnf_s, (const float*)lnf_b, (bf16*)y, M, C, 1e-5f);
-  TT_CHECK(cudaGetLastError());
+  TT_CHECK(tt_run_layers(t, ln1s, ln1b, wqkv, bqkv, wo, bo, ln2s, ln2b, w1,
+                         b1, w2, b2, y, qkv, ctx, hdn, B, C, L, heads, st));
+  TT_CHECK(launch_layernorm(t, (const float*)lnf_s, (const float*)lnf_b,
+                            (bf16*)y, M, C, 1e-5f, st));
   const size_t items = (size_t)2 * B * H * W * (C / 8);
   size_t blocks = (items + 255) / 256;
   if (blocks > 132 * 64) blocks = 132 * 64;
@@ -243,8 +242,6 @@ int gpt_merge_forward(const void* rgb, const void* ir, void* rgb_out,
   return (int)cudaGetLastError();
 }
 
-const char* error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
+const char* error_string(int err) { return tt_error_string(err); }
 
 }  // extern "C"

@@ -31,16 +31,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signature of each library's entry point: (name, argtypes); every entry
-# point returns the cudaError_t of its launches (0 = success)
+# Each entry point: (library, C function, argtypes).  A library is built from
+# ``csrc/<library>.cu``; every entry point returns the error of its launches
+# (0 = success), which ``check`` turns into an exception.
 SIGNATURES = {
-    "token_transformer": ("tt_forward", [_P] * 18 + [_I] * 4 + [_P]),
-    "nms_greedy": ("nms_greedy_forward", [_P] * 4 + [_I] * 3 + [_F, _P]),
-    "cem": ("cem_forward", [_P] * 3 + [_I] * 4 + [_P]),
-    "gpt_merge": ("gpt_merge_forward", [_P] * 26 + [_I] * 7 + [_P]),
+    "token_transformer": ("token_transformer", "tt_forward",
+                          [_P] * 18 + [_I] * 4 + [_P]),
+    "layer_gemm": ("token_transformer", "tt_gemm", [_P] * 5 + [_I] * 4 + [_P]),
+    # the same on a tile named by its index (measurement: chip_profile.py)
+    "layer_gemm_tile": ("token_transformer", "tt_gemm_tile",
+                        [_P] * 5 + [_I] * 5 + [_P]),
+    "nms_greedy": ("nms_greedy", "nms_greedy_forward",
+                   [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "cem": ("cem", "cem_forward", [_P] * 3 + [_I] * 4 + [_P]),
+    "gpt_merge": ("gpt_merge", "gpt_merge_forward", [_P] * 26 + [_I] * 7 + [_P]),
 }
+LIBRARIES = tuple(sorted({lib for lib, _, _ in SIGNATURES.values()}))
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}  # by library
+_entry: dict[str, object] = {}  # C functions, argtypes set, by entry point
 
 
 def _nvcc() -> str:
@@ -63,7 +72,7 @@ def build_all() -> float:
     """Compile every source whose library is missing, all at once.
     Returns the wall seconds taken; raises with nvcc's output on failure."""
     t0 = time.perf_counter()
-    todo = [n for n in SIGNATURES if not _lib_path(n).exists()]
+    todo = [n for n in LIBRARIES if not _lib_path(n).exists()]
     if not todo:
         return 0.0
     nvcc = _nvcc()
@@ -91,33 +100,38 @@ def build_all() -> float:
 
 def build_log(name: str) -> str:
     """nvcc's output (with ``-Xptxas -v``: registers, shared memory,
-    spills) from the last build of ``name`` in this checkout."""
+    spills) from the last build of library ``name`` in this checkout."""
     p = BUILD / f"{name}.log"
     return p.read_text() if p.exists() else ""
 
 
 def load(name: str):
-    """The C entry point of kernel library ``name``, built if needed."""
+    """The C function of entry point ``name``, its library built if
+    needed."""
+    fn = _entry.get(name)
+    if fn is not None:
+        return fn
     if not torch.cuda.is_available():
         raise RuntimeError(f"kernel {name!r} needs a CUDA device")
-    if name not in _loaded:
-        if not _lib_path(name).exists():
+    lib, fn_name, argtypes = SIGNATURES[name]
+    if lib not in _loaded:
+        if not _lib_path(lib).exists():
             build_all()
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(_loaded[name], fn_name)
+        _loaded[lib] = ctypes.CDLL(str(_lib_path(lib)))
+    fn = getattr(_loaded[lib], fn_name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _entry[name] = fn
     return fn
 
 
 def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error (``cudaGetLastError`` after
-    each launch, inside the C entry point)."""
+    """Raise if entry point ``name`` returned an error (``cudaGetLastError``
+    after each launch, or one of the C code's own, inside the C function)."""
     if err:
-        msg = _loaded[name].error_string
+        msg = _loaded[SIGNATURES[name][0]].error_string
         msg.argtypes, msg.restype = [_I], ctypes.c_char_p
-        raise RuntimeError(f"kernel {name!r} launch failed: cudaError {err} "
+        raise RuntimeError(f"kernel {name!r} launch failed: error {err} "
                            f"({msg(err).decode()})")
 
 

@@ -131,10 +131,11 @@ def fused_gpt_merge_reference(rgb, ir, stacked: dict, pos_emb, lnf_scale,
 def fused_gpt_merge(rgb, ir, stacked: dict, pos_emb, lnf_scale, lnf_bias,
                     num_heads: int = 8, gate: dict | None = None):
     """(rgb + up(trans_rgb), ir + up(trans_ir)), both (B, H, W, C) bf16.
-    On CUDA tensors this launches the kernel (one call; 5 launches plus 7
-    per layer, all on the current stream); on CPU tensors it runs the plain
-    version.  The kernel reads and writes NHWC-contiguous memory, which the
-    wrapper makes so explicitly.  ``stacked``: ``stack_block_params``' dict,
+    On CUDA tensors this launches the kernel (one call; 5 launches plus
+    K1's 7 per layer, its products on the TMA + wgmma GEMM, all on the
+    current stream); on CPU tensors it runs the plain version.  The kernel
+    reads and writes NHWC-contiguous memory, which the wrapper makes so
+    explicitly.  ``stacked``: ``stack_block_params``' dict,
     or on a card what ``prepare_stack`` made of it."""
     if rgb.device.type == "cpu":
         return fused_gpt_merge_reference(rgb, ir, stacked, pos_emb,

@@ -12,6 +12,10 @@ every accumulation are f32.
 
 Stacked weights use torch's Linear layout, ``(L, out, in)``; the dict keys
 are the JAX package's (``ln1_scale`` .. ``b2``).
+
+``layer_gemm`` runs the kernel's layer GEMM (TMA + wgmma, one of three
+epilogues) alone, beside its plain version ``layer_gemm_reference``, so that
+tests and ``chip_smoke.py`` can hold and time it product by product.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from mmidet_tpu_torch import kernels
 
 TOKENS = 128  # 2 modalities x 8x8 grid
 LN_EPS = 1e-5
+# the layer GEMM's epilogues, as csrc/token_transformer.cuh numbers them
+EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2}
 _VECTORS = ("ln1_scale", "ln1_bias", "bq", "bk", "bv", "bo", "ln2_scale",
             "ln2_bias", "b1", "b2")
 
@@ -108,8 +114,9 @@ def fused_token_transformer_reference(x: torch.Tensor, stacked: dict,
 def fused_token_transformer(x: torch.Tensor, stacked: dict,
                             num_heads: int = 8) -> torch.Tensor:
     """(B, 128, d) tokens, pos-emb added -> (B, 128, d) bf16, ``ln_f`` not
-    applied.  On a CUDA tensor this launches the kernel (one call, 7
-    launches per layer, all on the current stream); on a CPU tensor it runs
+    applied.  On a CUDA tensor this launches the kernel (one call; per
+    layer 7 launches on the current stream: two LayerNorms, the attention
+    and the four products on the TMA + wgmma GEMM); on a CPU tensor it runs
     the plain version.  ``stacked``: ``stack_block_params``' dict, or on a
     card what ``prepare_stack`` made of it."""
     if x.device.type == "cpu":
@@ -154,3 +161,75 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
 
 
 fused_token_transformer.launches = 0
+
+
+def layer_gemm_reference(a: torch.Tensor, w: torch.Tensor,
+                         bias: torch.Tensor, epilogue: str,
+                         residual: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Plain version of the layer GEMM: ``bf16(epilogue(a @ w^T + bias))``
+    for a (M, K), w (N, K) (Linear layout), bias (N,).  The product runs in
+    f32 on bf16-rounded operands and the bias is added in f32; ``gelu``
+    applies erf-GELU, ``residual`` adds the bf16-rounded residual (M, N) in
+    f32; the result is rounded to bf16 once."""
+    bf16 = torch.bfloat16
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}")
+    y = a.to(bf16).float() @ w.to(bf16).float().T + bias.float()
+    if epilogue == "gelu":
+        y = F.gelu(y)
+    elif epilogue == "residual":
+        y = residual.to(bf16).float() + y
+    return y.to(bf16)
+
+
+def layer_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               epilogue: str, residual: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """The layer GEMM alone: (M, N) bf16 = ``epilogue(a @ w^T + bias)``, as
+    ``layer_gemm_reference`` computes it.  With ``epilogue="residual"`` the
+    result overwrites ``residual`` (M, N) bf16 in place, as the layers
+    update their tokens, and is returned.  On a CUDA tensor this launches
+    the kernel (``tt_gemm``); on a CPU tensor it runs the plain version."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue must be one of {sorted(EPILOGUES)}")
+    if (epilogue == "residual") != (residual is not None):
+        raise ValueError("a residual goes with the 'residual' epilogue, "
+                         "and only with it")
+    if a.device.type == "cpu":
+        out = layer_gemm_reference(a, w, bias, epilogue, residual)
+        return out if residual is None else residual.copy_(out)
+    if a.device.type != "cuda":
+        raise ValueError(f"no layer-GEMM kernel for {a.device}")
+    bf16 = torch.bfloat16
+    m, k = a.shape
+    n = w.shape[0]
+    if tuple(w.shape) != (n, k) or tuple(bias.shape) != (n,) or k % 8 \
+            or n % 8:
+        raise ValueError(f"kernel takes a (M, K), w (N, K), bias (N,) with "
+                         f"N and K multiples of 8; got {tuple(a.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(bias.shape)}")
+    a = a.to(bf16).contiguous()
+    w = w.to(a.device, bf16).contiguous()
+    bias = bias.to(a.device, torch.float32).contiguous()
+    if residual is None:
+        out = torch.empty((m, n), dtype=bf16, device=a.device)
+    else:
+        if (tuple(residual.shape) != (m, n) or residual.dtype != bf16
+                or not residual.is_contiguous()
+                or residual.device != a.device):
+            raise ValueError(f"residual must be a contiguous ({m}, {n}) "
+                             f"bf16 tensor on {a.device}")
+        out = residual
+    if any(t.data_ptr() % 16 for t in (a, w, bias, out)):
+        raise ValueError("kernel takes 16-byte aligned operands")
+    fn = kernels.load("layer_gemm")
+    err = fn(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             out.data_ptr(), m, n, k, EPILOGUES[epilogue],
+             kernels.stream_ptr(a))
+    kernels.check("layer_gemm", err)
+    layer_gemm.launches += 1
+    return out
+
+
+layer_gemm.launches = 0

@@ -48,19 +48,99 @@ def _stack(d, L, gen, device):
 
 # d = 1024 is the flagship's widest level (dk = 128, the attention block's
 # largest shared-memory footprint); d = 16 and 96 (tiny and m scales) take
-# the ragged GEMM edges and the narrow-head load.  Gate: max error within
-# 2% of the output's range (bf16 roundings compound over the layers).
-@pytest.mark.parametrize("d", [16, 64, 96, 128, 512, 1024])
-def test_token_transformer_kernel_matches_plain(cuda, d):
+# the ragged GEMM edges and the narrow-head load; batch 1 (M = 128) is what
+# DetectionService sends; d = 2048 with 16 heads takes the LayerNorm for
+# rows wider than 1024.  Gate: max error within 2% of the output's range
+# (bf16 roundings compound over the layers).
+@pytest.mark.parametrize("d,b,heads", [
+    (16, 4, 8), (64, 4, 8), (96, 4, 8), (128, 4, 8), (512, 4, 8),
+    (1024, 4, 8), (1024, 1, 8), (2048, 1, 16)])
+def test_token_transformer_kernel_matches_plain(cuda, d, b, heads):
     gen = torch.Generator().manual_seed(d)
-    x = torch.randn(4, 128, d, generator=gen).to(cuda, torch.bfloat16)
+    x = torch.randn(b, 128, d, generator=gen).to(cuda, torch.bfloat16)
     st = _stack(d, 2, gen, cuda)
     before = tc.fused_token_transformer.launches
-    got = tc.fused_token_transformer(x, st).float()
-    ref = tc.fused_token_transformer_reference(x, st).float()
+    got = tc.fused_token_transformer(x, st, heads).float()
+    ref = tc.fused_token_transformer_reference(x, st, heads).float()
     torch.cuda.synchronize()
     assert tc.fused_token_transformer.launches == before + 1
     assert float((got - ref).abs().max()) <= 0.02 * float(ref.abs().max())
+
+
+# The layer GEMM alone, each epilogue, the residual one in place as the
+# layers run it.  (M, N, K): batch 1 at d = 96 (N and K ragged against the
+# 64-wide tiles) and its qkv at d = 1024; the m scale's qkv, the flagship's
+# w2 and w1 at batch 16; N = K = 16, less than one K tile.  Gate: 1e-2 of
+# the output's range (sums in another order flip single bf16 roundings,
+# 2^-8 of a value).
+@pytest.mark.parametrize("m,n,k", [(128, 96, 96), (128, 3072, 1024),
+                                   (2048, 288, 96), (2048, 1024, 4096),
+                                   (2048, 4096, 1024), (256, 16, 16)])
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+def test_layer_gemm_matches_plain(cuda, m, n, k, epilogue):
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen) / k ** 0.5).to(cuda, torch.bfloat16)
+    bias = (0.2 * torch.randn(n, generator=gen)).to(cuda)
+    res = None
+    if epilogue == "residual":
+        res = torch.randn(m, n, generator=gen).to(cuda, torch.bfloat16)
+    want = tc.layer_gemm_reference(a, w, bias, epilogue, res).float()
+    before = tc.layer_gemm.launches
+    got = tc.layer_gemm(a, w, bias, epilogue, res)
+    torch.cuda.synchronize()
+    assert tc.layer_gemm.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert res is None or got is res
+    err = float((got.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max())
+
+
+# Every tile the kernel offers (csrc/token_transformer.cuh's kTiles) with
+# every epilogue, on a shape ragged against all of them (N = 288, K = 96),
+# whichever tile the layers would pick.
+@pytest.mark.parametrize("tile", range(5))
+@pytest.mark.parametrize("epilogue", ["bias", "gelu", "residual"])
+def test_layer_gemm_every_tile_matches_plain(cuda, tile, epilogue):
+    from mmidet_tpu_torch import kernels
+    m, n, k = 320, 288, 96
+    gen = torch.Generator().manual_seed(tile)
+    a = torch.randn(m, k, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen) / k ** 0.5).to(cuda, torch.bfloat16)
+    bias = (0.2 * torch.randn(n, generator=gen)).to(cuda)
+    c = torch.randn(m, n, generator=gen).to(cuda, torch.bfloat16)
+    res = c.clone() if epilogue == "residual" else None
+    want = tc.layer_gemm_reference(a, w, bias, epilogue, res).float()
+    fn = kernels.load("layer_gemm_tile")
+    kernels.check("layer_gemm_tile", fn(
+        a.data_ptr(), w.data_ptr(), bias.data_ptr(), c.data_ptr(),
+        c.data_ptr(), m, n, k, tc.EPILOGUES[epilogue], tile,
+        kernels.stream_ptr(a)))
+    torch.cuda.synchronize()
+    err = float((c.float() - want).abs().max())
+    assert err <= 1e-2 * float(want.abs().max())
+
+
+def test_layer_gemm_rejects_bad_operands(cuda):
+    a = torch.zeros(128, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(96, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(96, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tc.layer_gemm(a[:, :60], w[:, :60], b, "bias")
+    with pytest.raises(ValueError, match="residual must be"):
+        tc.layer_gemm(a, w, b, "residual", torch.zeros(128, 96, device=cuda))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tc.layer_gemm(a.flatten()[4:4 + 128 * 56].view(128, 56), w[:, :56],
+                      b, "bias")
+    from mmidet_tpu_torch import kernels
+    fn = kernels.load("layer_gemm_tile")
+    out = torch.empty(128, 96, device=cuda, dtype=torch.bfloat16)
+    for epilogue, tile in ((0, 5), (3, 0)):
+        err = fn(a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 out.data_ptr(), 128, 96, 64, epilogue, tile,
+                 kernels.stream_ptr(a))
+        with pytest.raises(RuntimeError, match="unknown epilogue or tile"):
+            kernels.check("layer_gemm_tile", err)
 
 
 def test_token_transformer_kernel_rejects_bad_shapes(cuda):
@@ -208,13 +288,16 @@ def _merge_inputs(d, hw, b, L, gen, device, gated):
 # this one runs; 1x1 pools and upsamples a single pixel.  Gate: max error
 # within 2% of the merged streams' range, K1's gate (the merge adds one
 # more bf16 rounding to K1's compounding ones).
-@pytest.mark.parametrize("d,hw,gated", [
-    (128, (40, 40), True), (128, (24, 24), False), (256, (20, 20), False),
-    (512, (16, 16), True), (1024, (20, 20), False), (64, (5, 5), False),
-    (64, (3, 11), True), (64, (1, 1), False), (96, (33, 17), True)])
-def test_merge_kernel_matches_plain(cuda, d, hw, gated):
+# Batch 1 at the flagship's widest level: one image pair per request.
+@pytest.mark.parametrize("d,hw,gated,b", [
+    (128, (40, 40), True, 3), (128, (24, 24), False, 3),
+    (256, (20, 20), False, 3), (512, (16, 16), True, 3),
+    (1024, (20, 20), False, 3), (64, (5, 5), False, 3),
+    (64, (3, 11), True, 3), (64, (1, 1), False, 3), (96, (33, 17), True, 3),
+    (1024, (20, 20), False, 1)])
+def test_merge_kernel_matches_plain(cuda, d, hw, gated, b):
     gen = torch.Generator().manual_seed(d + hw[0])
-    args = _merge_inputs(d, hw, 3, 2, gen, cuda, gated)
+    args = _merge_inputs(d, hw, b, 2, gen, cuda, gated)
     before = fusion_cuda.fused_gpt_merge.launches
     got = fusion_cuda.fused_gpt_merge(*args)
     ref = fusion_cuda.fused_gpt_merge_reference(*args)

@@ -22,8 +22,9 @@ from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 F32_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 on both sides, sum order only
 # deploy pair: the merge kernel rounds the streams to bf16 at four levels on
 # both sides, at the same points; a flipped rounding moves an activation by
-# 2^-8 relative and the decode (wh = (2 sigmoid)^2 x anchor) amplifies it
-DEPLOY_TOL = dict(rtol=2e-2, atol=2e-2)
+# 2^-8 relative and the decode (wh = (2 sigmoid)^2 x anchor) amplifies it;
+# held per channel against its range (_check_range)
+DEPLOY_TOL = 2e-2
 SPEC_ARGS = dict(scale="l", fusion="fourier", nc=2, fusion_layers=2)
 
 
@@ -86,6 +87,24 @@ def _check(out, want, tol):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), **tol)
 
 
+def _check_range(out, want, tol):
+    """bf16 paths: per output channel (the last axis), max error within
+    ``tol`` of that channel's range, or of 1 where the range is smaller.
+    bf16 roundings flipped by another order of sums compound through the
+    fusion layers and move large and small elements alike, so a per-element
+    gate has too little margin; box coordinates reach hundreds where
+    confidences stay below 1, so each channel keeps its own range."""
+    pairs = [(out["pred"], want["pred"])]
+    pairs += list(zip(out["train_outs"], want["train_outs"]))
+    assert len(out["train_outs"]) == len(want["train_outs"]) == 3
+    for got, w in pairs:
+        w = np.asarray(w)
+        assert tuple(got.shape) == w.shape
+        err = np.abs(got.numpy() - w).reshape(-1, w.shape[-1]).max(0)
+        top = np.abs(w).reshape(-1, w.shape[-1]).max(0)
+        assert (err <= tol * np.maximum(top, 1.0)).all(), (err, top)
+
+
 def test_every_leaf_of_the_fourier_model_lands_once(ref):
     port = TwoStreamDetector(two_stream_spec(**SPEC_ARGS))
     used = from_jax_variables(port, ref["v"])
@@ -116,7 +135,7 @@ def test_all_kernel_flags_match_jax_with_all_pallas_flags(ref):
     before = [f.launches for f in counts]
     out = _run(model, ref)
     assert [f.launches for f in counts] == before  # plain versions on the CPU
-    _check(out, ref["deploy"], DEPLOY_TOL)
+    _check_range(out, ref["deploy"], DEPLOY_TOL)
 
 
 def test_add2_rows_become_selects_only_with_the_merge_kernel(ref):
@@ -134,7 +153,9 @@ def test_add2_rows_become_selects_only_with_the_merge_kernel(ref):
             outs[merge, layer] = _run(base.eval(), ref)["trunc"]
     torch.testing.assert_close(outs[True, 7], outs[True, 6][0], rtol=0,
                                atol=0)
-    # unmerged: layer 7 = stream + fusion output; merged within bf16 of it
-    torch.testing.assert_close(outs[True, 7], outs[False, 7], rtol=0.06,
-                               atol=0.06)
+    # unmerged: layer 7 = stream + fusion output; merged (bf16 inside) within
+    # 2% of its range, K4's gate: the rounding moves small and large
+    # elements alike, which a per-element gate held with less than 2x margin
+    err = (outs[True, 7] - outs[False, 7]).abs().max()
+    assert float(err) <= 0.02 * float(outs[False, 7].abs().max())
     assert float((outs[False, 7] - outs[False, 6][0]).abs().max()) > 0.1

@@ -1,8 +1,9 @@
 """The PyTorch port's layers against the JAX package's, in float32.
 
-Same numpy inputs, same weights (bridged with ``from_jax_variables``),
-outputs compared at rtol 1e-5 / atol 1e-5: both sides compute in f32 and
-differ only in the order of the convolutions' sums."""
+Same numpy inputs, same weights (bridged with ``from_jax_variables``).
+Both sides compute in f32 and differ only in the order of the
+convolutions' sums: modules within 1e-5 of their output's range, the
+resampling ops at rtol 1e-5 / atol 1e-5."""
 
 import jax
 import numpy as np
@@ -66,7 +67,13 @@ def _compare(jax_mod, port_mod, x, scope="l0_m", fold=False, seed=0):
     want = np.asarray(jax_mod.apply(v, x))
     with torch.no_grad():
         got = port_mod.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
-    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **TOL)
+    # f32 on both sides, sums in another order: the rounding error of a sum
+    # scales with its terms, not with its result, so an element that
+    # cancels to near 0 inside an output that reaches tens (the CEM's, 1.8e-5
+    # at 0.09 where the output reaches 35) misses any per-element gate.
+    # The gate is relative to the output's range.
+    err = np.abs(got.permute(0, 2, 3, 1).numpy() - want).max()
+    assert err <= 1e-5 * max(1.0, float(np.abs(want).max())), err
 
 
 def _x(shape, seed=1):

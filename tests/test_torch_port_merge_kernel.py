@@ -58,9 +58,11 @@ def _inputs(d, hw, b, gated, seed):
 #
 # Both sides round at the same points; they differ in the order of f32 sums
 # (and the Pallas erf polynomial), which flips bf16 roundings of
-# intermediates.  The merged streams reach about 8, where one bf16 step is
-# 0.03125; two compounding steps (token, then the stream sum) give the gate:
-# atol 5e-2 plus 1% of the value.
+# intermediates, and a flip in one layer compounds through the next.  The
+# merged streams reach about 8, where one bf16 step is 0.03125; measured
+# errors reach two steps on any element, small or large, so a per-element
+# gate had less than 2x margin.  The gate is K4's on the card, relative to
+# the range: max error within 2% of max |want|, and a small mean error.
 @pytest.mark.parametrize("d,hw,b,gated", [
     (128, (24, 24), 2, False), (256, (16, 16), 3, False),
     (64, (20, 20), 2, False), (64, (24, 16), 2, True)])
@@ -83,8 +85,9 @@ def test_reference_matches_pallas_interpret(d, hw, b, gated):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
         w = np.asarray(w.astype(jnp.float32))
-        np.testing.assert_allclose(g.float().numpy(), w, atol=5e-2, rtol=1e-2)
-        assert np.abs(g.float().numpy() - w).mean() < 2e-3
+        err = np.abs(g.float().numpy() - w)
+        assert err.max() <= 0.02 * np.abs(w).max(), err.max()
+        assert err.mean() < 2e-3
 
 
 def _randomized(mod, seed):

@@ -77,14 +77,27 @@ def test_wrappers_refuse_other_devices():
     s = torch.zeros(1, 8, 8, 64, device="meta")
     with pytest.raises(ValueError, match="no GPT-merge kernel"):
         fusion_cuda.fused_gpt_merge(s, s, {}, None, None, None)
+    m = torch.zeros(128, 64, device="meta")
+    with pytest.raises(ValueError, match="no layer-GEMM kernel"):
+        transformer_cuda.layer_gemm(m, m, torch.zeros(128, device="meta"),
+                                    "bias")
 
 
 def test_every_kernel_is_registered_counted_and_has_a_plain_version():
-    """Four TPU kernels, four CUDA sources; each wrapper counts its
-    launches and has its plain PyTorch version beside it."""
-    assert set(kernels.SIGNATURES) == {"token_transformer", "nms_greedy",
+    """Four TPU kernels, four CUDA sources, and the layer GEMM that K1 and
+    K4 share as an entry point of its own; each wrapper counts its launches
+    and has its plain PyTorch version beside it."""
+    assert set(kernels.SIGNATURES) == {"token_transformer", "layer_gemm",
+                                       "layer_gemm_tile", "nms_greedy",
                                        "cem", "gpt_merge"}
+    assert kernels.LIBRARIES == ("cem", "gpt_merge", "nms_greedy",
+                                 "token_transformer")
+    assert kernels.SIGNATURES["layer_gemm"][:2] == ("token_transformer",
+                                                    "tt_gemm")
+    assert kernels.SIGNATURES["layer_gemm_tile"][:2] == ("token_transformer",
+                                                         "tt_gemm_tile")
     for mod, name in ((transformer_cuda, "fused_token_transformer"),
+                      (transformer_cuda, "layer_gemm"),
                       (nms_cuda, "nms_greedy"), (cem_cuda, "fused_cem"),
                       (fusion_cuda, "fused_gpt_merge")):
         assert isinstance(getattr(mod, name).launches, int)
@@ -110,13 +123,15 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     for f in kernels.CSRC.iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(kernels, "CSRC", csrc)
-    before = {n: kernels._lib_path(n).name for n in kernels.SIGNATURES}
+    before = {n: kernels._lib_path(n).name for n in kernels.LIBRARIES}
     hdr = csrc / "token_transformer.cuh"
     hdr.write_text(hdr.read_text() + "\n// edited\n")
-    after = {n: kernels._lib_path(n).name for n in kernels.SIGNATURES}
+    after = {n: kernels._lib_path(n).name for n in kernels.LIBRARIES}
     assert all(before[n] != after[n] for n in before)
 
 
 def test_kernel_sources_are_in_the_package():
-    for name in kernels.SIGNATURES:
+    for name in kernels.LIBRARIES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
+    for src in kernels.CSRC.glob("*.cu"):
+        assert src.stem in kernels.LIBRARIES, src.name

@@ -42,10 +42,13 @@ def _port_stack(st):
 
 # Both sides compute in bf16 with the same rounding points; they differ in
 # the order of f32 sums and in erf (the Pallas kernel's is a polynomial,
-# |err| < 1.5e-7), which flip bf16 roundings of intermediates.  Outputs
-# reach ~8, where one bf16 step is 0.03125 (measured max error: one step),
-# hence atol 2e-2 plus 1% of the value.
-@pytest.mark.parametrize("d,b", [(64, 2), (256, 2)])
+# |err| < 1.5e-7), which flip bf16 roundings of intermediates.  A flip in
+# an early layer compounds through the later ones, so an element of 0.4
+# can move by 0.025 where the output reaches 8: a per-element gate misses
+# it on some machines and not on others.  The gate is chip_smoke.py's K1
+# gate, relative to the output's range: max error within 2% of max |want|.
+# d = 96 takes the m scale's width (no multiple of 64).
+@pytest.mark.parametrize("d,b", [(64, 2), (256, 2), (96, 1)])
 def test_reference_matches_pallas_interpret(d, b):
     rng = np.random.default_rng(d)
     x = rng.normal(0, 1, (b, 128, d)).astype(np.float32)
@@ -56,9 +59,9 @@ def test_reference_matches_pallas_interpret(d, b):
     got = tc.fused_token_transformer_reference(torch.from_numpy(x),
                                                _port_stack(st),
                                                num_heads=8)
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
-                               rtol=1e-2)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 0.02 * np.abs(want).max(), err
 
 
 def test_wrapper_uses_plain_version_on_cpu():
