@@ -9,6 +9,9 @@ batch 16 at 640x640) and prints JSON lines:
     layer's four products on each tile the kernel offers, at the main
     paths' shapes (TFLOP/s of device time, beside the tile the layers pick
     and ``F.linear``);
+  * ``k3_phases``: K3's bf16 kernel at the flagship's shape with all of its
+    phases, each phase alone (input tile, conv2, bank, conv3, store) and
+    none, from ``csrc/cem.cu`` built with ``-DCEM_SKIP_PHASES=<mask>``;
   * ``memory_format``: yolov5s_gpt4's forward time in NCHW and in
     channels_last memory format, timed in turns (nchw, cl, cl, nchw) with
     CUDA events;
@@ -99,6 +102,59 @@ def gemm_tiles(torch, card: str) -> None:
             print(json.dumps({"phase": "layer_gemm_tiles", "card": card,
                               "m": m, "d": d, "product": prod, "n": n,
                               "k": k, "tflops_by_tile": rec}), flush=True)
+
+
+# K3's bf16 kernel phase by phase: csrc/cem.cu built with -DCEM_SKIP_PHASES,
+# the mask of phases its kernel leaves out (bit i: phase i of this list)
+_K3_PHASES = ("load", "conv2", "bank", "conv3", "store")
+
+
+def k3_phases(torch, card: str) -> None:
+    """Device time of K3 at (16, 640, 640, 3) bf16 with all phases, each
+    phase alone, and none (the launch, weights and barriers)."""
+    import ctypes
+    import subprocess
+
+    from chip_smoke import device_ms
+    from mmidet_tpu_torch import kernels
+    from mmidet_tpu_torch.nn import cem_cuda
+    every = (1 << len(_K3_PHASES)) - 1
+    masks = {"all": 0, "none": every}
+    masks.update({f"{n} alone": every & ~(1 << i)
+                  for i, n in enumerate(_K3_PHASES)})
+    kernels.BUILD.mkdir(exist_ok=True)
+    libs = {m: kernels.BUILD / f"libcem_skip{m}.so" for m in masks.values()}
+    builds = [subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DCEM_SKIP_PHASES={m}",
+         "-o", str(lib), str(kernels.CSRC / "cem.cu")],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        for m, lib in libs.items()]
+    for b in builds:
+        err = b.communicate()[1]
+        if b.returncode:
+            raise RuntimeError(err.decode())
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = [0.3 * torch.randn(s, generator=gen, device=dev) for s in (
+        (3, 3, 3, 24), (24,), (24,), (24,), (3, 3, 24, 3), (3,))]
+    x = torch.rand(16, 640, 640, 3, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pack = cem_cuda.pack_cem_weights(*params, torch.bfloat16)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = {}
+    for name, m in masks.items():
+        fn = ctypes.CDLL(str(libs[m])).cem_forward
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+
+        def run():
+            kernels.check("cem", fn(x.data_ptr(), pack.data_ptr(),
+                                    out.data_ptr(), 16, 640, 640, 1, stream))
+        ms[name] = device_ms(run, reps=10)
+    print(json.dumps({"phase": "k3_phases", "card": card,
+                      "shape": [16, 640, 640, 3], "device_ms": ms}),
+          flush=True)
 
 
 def group_of(name: str, groups) -> str:
@@ -214,6 +270,7 @@ def main() -> int:
     label = {"card": card, "batch": B, "img": S}
 
     gemm_tiles(torch, card)
+    k3_phases(torch, card)
     model = build_model(torch, get_model_spec("yolov5s_gpt4")).to(
         dev, torch.bfloat16)
     with torch.inference_mode():

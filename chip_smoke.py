@@ -15,7 +15,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      the main paths' shapes (B = 16, 128 tokens, L = 8, d = 64..1024), with
      kernel, plain, library (torch.matmul + SDPA) and bound times;
   5. K2, greedy NMS, against its plain version (B = 16, K = 4096,
-     max_det = 300): identical indices;
+     max_det = 300): identical indices on the seeded unsorted pool, a
+     tie-heavy one, one sorted as ``torch.topk`` hands it on, one of
+     duplicate boxes and one of which few boxes survive; the kernel's own
+     count of its chunk rounds per image, held against the sorted pool;
+     timed on the seeded pool and on the one of few survivors;
   6. K3, the fused CEM, against its plain version at (16, 640, 640, 3) in
      bf16 and f32 and at an odd shape that crosses tile borders; library
      time: the port's unfused ``ContourEnhance`` (cuDNN; TF32 off for the
@@ -306,30 +310,105 @@ def nms_pool(torch, B: int, K: int, gen, n_cls: int = 6):
     return boxes, scores
 
 
+def k2_pools(torch, boxes, scores):
+    """The pools K2 is held against: the seeded unsorted pool, the same
+    with scores on a 1/16 grid (many ties), sorted as ``torch.topk`` hands
+    it on in the main path (``ops/nms.py``), every box twice (IoU 1), and
+    large boxes near the image's centre, of which few survive, so that the
+    scan consumes every valid candidate."""
+    _, K = scores.shape
+    valid = scores > -torch.inf
+    ties = torch.where(valid, torch.floor(scores * 16) / 16, scores)
+    top, order = torch.topk(scores, K, 1)
+    dup = boxes.clone()
+    dup[:, K // 2:] = boxes[:, :K - K // 2]
+    offset = torch.floor(boxes[..., :1] / 4096) * 4096  # the class offset
+    xy = 280 + (boxes[..., :2] - offset) / 8  # inside 280..360
+    big = torch.cat([xy, xy + 300 + (boxes[..., 2:] - boxes[..., :2]) / 4],
+                    -1) + offset
+    return {"unsorted": (boxes, scores), "tie_heavy": (boxes, ties),
+            "topk_sorted": (boxes.gather(1, order[..., None].expand(
+                -1, -1, 4)), top),
+            "duplicates": (dup, scores), "few_survive": (big, scores)}
+
+
+def expected_scan(torch, scores, keep_idx, keep_valid, max_det: int,
+                  chunk: int = 64):
+    """What K2's own count of its scan (``nms_greedy(stats=)``) must read,
+    per image, from greedy's result: the scan consumes the sorted pool up
+    to the max_det-th kept box, or every valid candidate when fewer are
+    kept, in ceil(consumed / chunk) rounds."""
+    key = torch.where(scores > -torch.inf, -scores, torch.inf)
+    order = torch.sort(key, dim=1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(order.shape[1], device=order.device).expand_as(
+            order).contiguous())
+    kept = keep_valid.sum(1)
+    n_valid = (scores > -torch.inf).sum(1)
+    last = torch.where(keep_valid, rank.gather(1, keep_idx.long()), -1)
+    consumed = torch.where(kept >= max_det, last.amax(1) + 1, n_valid)
+    rounds = torch.div(consumed + chunk - 1, chunk, rounding_mode="floor")
+    return torch.stack([rounds, consumed, kept, n_valid], 1).to(torch.int32)
+
+
+def k2_bound(stats, B: int, K: int, max_det: int):
+    """K2's bound from what this pool's greedy selection needs: each box
+    read and each index written once; the IoUs that decide it (every kept
+    box against the kept boxes before it, every other consumed candidate
+    against one kept box, 14 f32 operations each) and a comparison sort of
+    the valid candidates (n log2 n comparisons)."""
+    ops = 0.0
+    for rounds, consumed, kept, n_valid in stats.tolist():
+        ops += 14 * (kept * (kept - 1) / 2 + consumed - kept)
+        ops += n_valid * math.log2(max(n_valid, 2))
+    return bound(ops, B * K * (16 + 4) + B * max_det * (4 + 1),
+                 PEAK_F32_FLOPS)
+
+
 def phase_k2(torch, dev):
     from mmidet_tpu_torch.ops import nms_cuda
     B, K, max_det, thr = 16, 4096, 300, 0.45
     boxes, scores = nms_pool(torch, B, K, torch.Generator().manual_seed(2))
     boxes, scores = boxes.to(dev), scores.to(dev)
-    ri, rv = nms_cuda.nms_greedy_reference(boxes, scores, thr, max_det)
-    ki, kv = nms_cuda.nms_greedy(boxes, scores, thr, max_det)
-    torch.cuda.synchronize()
-    same = bool(torch.equal(ri, ki) and torch.equal(rv, kv))
-    steps = int(kv.sum())  # steps that found a box; the rest exit early
-    flops = steps * K * 14  # compare + 13 f32 operations of the IoU pass
-    nbytes = B * K * (16 + 4) + B * max_det * (4 + 1)
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    rec = {"max_abs_err": float((ki - ri).abs().max()), "identical": same,
-           "kept": steps,
-           "ms": time_ms(lambda: nms_cuda.nms_greedy(boxes, scores, thr,
-                                                     max_det)),
+    checks, err, timed = [], 0, {}
+    for name, (b, s) in k2_pools(torch, boxes, scores).items():
+        ri, rv = nms_cuda.nms_greedy_reference(b, s, thr, max_det)
+        stats = torch.zeros(B, 4, dtype=torch.int32, device=dev)
+        ki, kv = nms_cuda.nms_greedy(b, s, thr, max_det, stats=stats)
+        torch.cuda.synchronize()
+        rounds = stats[:, 0].tolist()
+        checks.append({
+            "pool": name,
+            "identical": bool(torch.equal(ri, ki) and torch.equal(rv, kv)),
+            "scan_as_expected": bool(torch.equal(
+                stats, expected_scan(torch, s, ri, rv, max_det))),
+            "kept": int(kv.sum()), "max_rounds": max(rounds),
+            "mean_rounds": sum(rounds) / len(rounds),
+            "mean_consumed": stats[:, 1].float().mean().item()})
+        err = max(err, int((ki - ri).abs().max()))
+        if name in ("unsorted", "few_survive"):
+            bound_ms, bound_by = k2_bound(stats, B, K, max_det)
+            timed[name] = {
+                "kept": int(kv.sum()),
+                "ms": time_ms(lambda: nms_cuda.nms_greedy(b, s, thr,
+                                                          max_det)),
+                "device_ms": device_ms(lambda: nms_cuda.nms_greedy(
+                    b, s, thr, max_det)),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+    rec = {"max_abs_err": err, **timed["unsorted"],
+           "identical": all(c["identical"] for c in checks),
+           "scan_as_expected": all(c["scan_as_expected"] for c in checks),
+           "checks": checks, "few_survive": timed["few_survive"],
            "plain_ms": time_ms(lambda: nms_cuda.nms_greedy_reference(
                boxes, scores, thr, max_det), warmup=1),
-           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": None}
     emit({"phase": "k2_nms_greedy", **rec})
-    if not same:
-        raise AssertionError("K2 keep_idx/keep_valid differ from the plain "
-                             "version")
+    if not rec["identical"]:
+        raise AssertionError(f"K2 keep_idx/keep_valid differ from the plain "
+                             f"version: {checks}")
+    if not rec["scan_as_expected"]:
+        raise AssertionError(f"K2's count of its scan differs from the "
+                             f"sorted pool's: {checks}")
     return rec
 
 
@@ -400,7 +479,7 @@ def phase_k3(torch, dev):
     flops = pix * (1296 + 24 + 144 + 48 + 24 + 1296 + 3)
     nbytes = pix * 3 * 2 * 2 + 1660 * 4
     # the bf16 form's products take bf16 operands: the tensor cores' rate,
-    # though this kernel runs them on the CUDA cores; the f32 form's take f32
+    # on which the kernel runs them; the f32 form's take f32
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     f32_bound_ms, f32_bound_by = bound(flops, pix * 3 * 4 * 2 + 1660 * 4,
                                        PEAK_F32_FLOPS)
@@ -418,6 +497,8 @@ def phase_k3(torch, dev):
                    .abs().max()),
                "ms": time_ms(
                    lambda: cem_cuda.fused_cem(x, *params, pack=pack)),
+               "device_ms": device_ms(
+                   lambda: cem_cuda.fused_cem(x, *params, pack=pack)),
                "ms_with_packing": time_ms(
                    lambda: cem_cuda.fused_cem(x, *params)),
                "plain_ms": time_ms(
@@ -428,6 +509,8 @@ def phase_k3(torch, dev):
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "f32_form": {
                    "ms": time_ms(lambda: cem_cuda.fused_cem(
+                       x32, *params, pack=pack32)),
+                   "device_ms": device_ms(lambda: cem_cuda.fused_cem(
                        x32, *params, pack=pack32)),
                    "plain_ms": time_ms(
                        lambda: cem_cuda.fused_cem_reference(x32, *params),

@@ -42,7 +42,7 @@ SIGNATURES = {
     "layer_gemm_tile": ("token_transformer", "tt_gemm_tile",
                         [_P] * 5 + [_I] * 5 + [_P]),
     "nms_greedy": ("nms_greedy", "nms_greedy_forward",
-                   [_P] * 4 + [_I] * 3 + [_F, _P]),
+                   [_P] * 5 + [_I] * 3 + [_F, _P]),
     "cem": ("cem", "cem_forward", [_P] * 3 + [_I] * 4 + [_P]),
     "gpt_merge": ("gpt_merge", "gpt_merge_forward", [_P] * 26 + [_I] * 7 + [_P]),
 }

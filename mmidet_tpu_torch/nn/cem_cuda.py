@@ -32,11 +32,15 @@ _OFF_W2, _OFF_WB, _OFF_W3, _OFF_B2, _OFF_BS, _OFF_B3, _PACK = (
     0, 672, 960, 1608, 1632, 1656, 1660)
 
 
-def _check_params(x, w2, b2, factor, bias_s, w3, b3) -> None:
+def _check_x(x) -> None:
     if x.dim() != 4 or x.shape[-1] != 3:
         raise ValueError(f"fused CEM takes (B, H, W, 3); got {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused CEM takes bf16 or f32; got {x.dtype}")
+
+
+def _check_params(x, w2, b2, factor, bias_s, w3, b3) -> None:
+    _check_x(x)
     for name, t, shape in (("w2", w2, (3, 3, 3, _E)), ("b2", b2, (_E,)),
                            ("factor", factor, (_E,)),
                            ("bias_s", bias_s, (_E,)),
@@ -123,12 +127,17 @@ def fused_cem(x, w2, b2, factor, bias_s, w3, b3,
         return fused_cem_reference(x, w2, b2, factor, bias_s, w3, b3)
     if x.device.type != "cuda":
         raise ValueError(f"no CEM kernel for {x.device}")
-    _check_params(x, w2, b2, factor, bias_s, w3, b3)
+    if pack is None:
+        _check_params(x, w2, b2, factor, bias_s, w3, b3)
+    else:  # the kernel reads the weights from the pack alone
+        _check_x(x)
     b, h, w, _ = x.shape
     if min(b, h, w) < 1 or b > 65535:
         raise ValueError(f"CEM kernel takes 1 <= B <= 65535 and H, W >= 1; "
                          f"got {tuple(x.shape)}")
     xin = x.contiguous()  # (B, H, W, 3) row-major: channels innermost
+    if xin.data_ptr() % 16:  # the kernel reads x in aligned 16-byte chunks
+        xin = xin.clone()
     if pack is None:
         pack = pack_cem_weights(*(t.to(x.device) for t in (
             w2, b2, factor, bias_s, w3, b3)), x.dtype)

@@ -5,7 +5,10 @@ Counterpart of ``mmidet_tpu/ops/nms_pallas.py``.  The kernel
 (``csrc/nms_greedy.cu``) replaces the TPU kernel ``nms_greedy_pallas``
 there, and both versions compute ``mmidet_tpu/ops/nms.py:_nms_single`` on
 boxes that already carry the class offset: ``max_det`` steps of argmax
-(lowest index on ties), IoU against the pool, suppression.
+(lowest index on ties), IoU against the pool, suppression.  The plain version
+takes those steps; the kernel sorts the pool by (score descending, index
+ascending) and keeps, in that order, every candidate that no earlier kept
+box suppresses, 64 candidates per dependent round.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from mmidet_tpu_torch import kernels
 
-MAX_POOL = 4096  # the kernel holds K/1024 <= 4 candidates per thread
+MAX_POOL = 4096  # the kernel sorts the pool in shared memory
 
 
 def nms_greedy_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -44,11 +47,20 @@ def nms_greedy_reference(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
-               iou_thres: float = 0.45, max_det: int = 300):
+               iou_thres: float = 0.45, max_det: int = 300,
+               stats: torch.Tensor | None = None):
     """Batched greedy NMS.  On a CUDA tensor this launches the kernel (one
-    block per image, all steps in one launch); on a CPU tensor it runs the
-    plain version."""
+    block per image, sort and scan in one launch); on a CPU tensor it runs
+    the plain version.  Scores are finite or -inf.
+
+    ``stats``, a (B, 4) int32 tensor on the boxes' device, takes the
+    kernel's own count of its scan per image: the dependent rounds, the
+    sorted candidates they consumed, the boxes kept and the valid
+    candidates.  Only the kernel fills it."""
     if boxes.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("stats count the kernel's scan; the plain "
+                             "version has none")
         return nms_greedy_reference(boxes, scores, iou_thres, max_det)
     if boxes.device.type != "cuda":
         raise ValueError(f"no NMS kernel for {boxes.device}")
@@ -58,6 +70,11 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError(f"kernel takes boxes (B, K, 4) and scores (B, K) "
                          f"with K <= {MAX_POOL}; got {tuple(boxes.shape)}, "
                          f"{tuple(scores.shape)}")
+    if stats is not None and (stats.shape != (b, 4) or stats.dtype !=
+                              torch.int32 or stats.device != boxes.device
+                              or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous ({b}, 4) int32 tensor "
+                         f"on {boxes.device}")
     boxes = boxes.to(torch.float32).contiguous()
     scores = scores.to(torch.float32).contiguous()
     keep_idx = torch.empty((b, max_det), dtype=torch.int32,
@@ -66,8 +83,9 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
                              device=boxes.device)
     fn = kernels.load("nms_greedy")
     err = fn(boxes.data_ptr(), scores.data_ptr(), keep_idx.data_ptr(),
-             keep_valid.data_ptr(), b, k, max_det, float(iou_thres),
-             kernels.stream_ptr(boxes))
+             keep_valid.data_ptr(),
+             None if stats is None else stats.data_ptr(), b, k, max_det,
+             float(iou_thres), kernels.stream_ptr(boxes))
     kernels.check("nms_greedy", err)
     nms_greedy.launches += 1
     return keep_idx, keep_valid

@@ -6,6 +6,9 @@ has only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -178,10 +181,79 @@ def test_nms_kernel_matches_plain(cuda, k, max_det):
     assert not got[1][2].any()
 
 
+def _special_pool(kind, k, gen):
+    """One image's pool of the named kind, on the CPU."""
+    boxes, scores = _pool(gen, 1, k)
+    if kind == "tie_heavy":  # scores on a 1/16 grid: many equal
+        scores = torch.where(scores > -torch.inf,
+                             torch.floor(scores * 16) / 16, scores)
+    elif kind == "sorted":  # descending, as torch.topk hands it on
+        scores, order = torch.sort(scores, 1, descending=True)
+        boxes = boxes.gather(1, order[..., None].expand(-1, -1, 4))
+    elif kind == "duplicates":  # every box twice (IoU = 1), zero areas
+        half = (k + 1) // 2
+        boxes = torch.cat([boxes[:, :half], boxes[:, :k - half]], 1)
+        boxes[:, ::7, 2] = boxes[:, ::7, 0]
+    elif kind == "few_survive":  # large boxes near the centre, one class
+        xy = 280 + torch.rand(1, k, 2, generator=gen) * 80
+        boxes = torch.cat([xy, xy + 300 + torch.rand(1, k, 2, generator=gen)
+                           * 40], -1)
+    return boxes, scores
+
+
+def _expected_scan():
+    """``chip_smoke.py:expected_scan``: the kernel's count of its scan, as
+    greedy's answer determines it."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.expected_scan
+
+
+# The kernel sorts each pool, then scans it in chunks of 64: ties, pools
+# handed on sorted, duplicate boxes, pools of which few boxes survive, pools
+# of one slot and at either side of a chunk, and max_det = 1 must all give
+# greedy's indices exactly, and the kernel's count of its scan (rounds,
+# consumed, kept, valid) must be the one greedy's answer determines.
+@pytest.mark.parametrize("kind,k,max_det", [
+    ("tie_heavy", 4096, 300), ("tie_heavy", 700, 1000), ("sorted", 4096, 300),
+    ("duplicates", 4096, 300), ("duplicates", 130, 200),
+    ("random", 1, 300), ("random", 63, 300), ("random", 64, 300),
+    ("random", 65, 300), ("random", 4095, 300), ("random", 4096, 1),
+    ("tie_heavy", 65, 1), ("few_survive", 4096, 300),
+    ("few_survive", 1000, 300)])
+def test_nms_kernel_special_pools_match_plain(cuda, kind, k, max_det):
+    gen = torch.Generator().manual_seed(k + max_det)
+    pools = [_special_pool(kind, k, gen) for _ in range(3)]
+    b = torch.cat([p[0] for p in pools]).to(cuda)
+    s = torch.cat([p[1] for p in pools]).to(cuda)
+    before = nms_cuda.nms_greedy.launches
+    stats = torch.full((3, 4), -1, dtype=torch.int32, device=cuda)
+    got = nms_cuda.nms_greedy(b, s, 0.45, max_det, stats=stats)
+    want = nms_cuda.nms_greedy_reference(b, s, 0.45, max_det)
+    assert nms_cuda.nms_greedy.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(stats, _expected_scan()(torch, s, *want, max_det))
+    if kind == "few_survive":  # the scan walks every valid candidate
+        assert (want[1].sum(1) < max_det).all()
+        assert torch.equal(stats[:, 1], stats[:, 3])
+
+
 def test_nms_kernel_rejects_large_pools(cuda):
     with pytest.raises(ValueError, match="K <= 4096"):
         nms_cuda.nms_greedy(torch.zeros(1, 4097, 4, device=cuda),
                             torch.zeros(1, 4097, device=cuda))
+
+
+def test_nms_kernel_rejects_bad_stats(cuda):
+    b, s = torch.zeros(2, 64, 4, device=cuda), torch.zeros(2, 64, device=cuda)
+    for bad in (torch.zeros(2, 4, dtype=torch.int64, device=cuda),
+                torch.zeros(2, 3, dtype=torch.int32, device=cuda),
+                torch.zeros(2, 4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="stats must be"):
+            nms_cuda.nms_greedy(b, s, stats=bad)
 
 
 def test_tiny_model_kernel_path_matches_plain_path(cuda):
@@ -231,11 +303,17 @@ def _cem_params(gen, device):
             rn(3, 3, 24, 3, scale=0.2), rn(3, scale=0.5))
 
 
-# shapes that cross tile borders (16x32 tiles): one tile exactly, ragged in
-# both directions, narrower and lower than one tile, a single pixel
-@pytest.mark.parametrize("shape", [(2, 16, 32, 3), (2, 80, 80, 3),
-                                   (1, 37, 53, 3), (2, 352, 608, 3),
-                                   (3, 5, 7, 3), (1, 1, 1, 3)])
+# shapes that cross tile borders (the bf16 form's 40x32 tiles, the f32
+# form's 16x32): one tile of either exactly, two by two tiles, one row or
+# column past a tile and one short of it in both directions, ragged in both,
+# narrower and lower than one tile, a single pixel; widths whose rows are
+# not a whole number of 16-byte chunks (W = 33, 7, 1)
+@pytest.mark.parametrize("shape", [(2, 16, 32, 3), (2, 40, 32, 3),
+                                   (2, 80, 64, 3), (1, 41, 33, 3),
+                                   (2, 39, 31, 3), (1, 81, 97, 3),
+                                   (2, 80, 80, 3), (1, 37, 53, 3),
+                                   (2, 352, 608, 3), (3, 5, 7, 3),
+                                   (1, 1, 1, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cem_kernel_matches_plain(cuda, shape, dtype):
     """f32: sums differ in order only (1e-4 of the output range).  bf16:
@@ -252,6 +330,21 @@ def test_cem_kernel_matches_plain(cuda, shape, dtype):
     assert got.shape == x.shape
     tol = 1e-4 if dtype == torch.float32 else 0.02
     assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_cem_kernel_takes_an_unaligned_view(cuda):
+    """The bf16 kernel reads x in aligned 16-byte chunks: a view that starts
+    off a 16-byte boundary (the second image of a 5x7 batch, 210 bytes in)
+    gives what the same values give from their own storage."""
+    p = _cem_params(torch.Generator().manual_seed(2), cuda)
+    x = torch.randn(3, 5, 7, 3, generator=torch.Generator().manual_seed(3)
+                    ).to(cuda, torch.bfloat16)
+    view = x[1:]
+    assert view.data_ptr() % 16
+    got = cem_cuda.fused_cem(view, *p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cem_cuda.fused_cem(view.clone(), *p))
+    assert torch.equal(x[1:], view)  # the input is untouched
 
 
 def test_cem_kernel_rejects_bad_inputs(cuda):
