@@ -19,7 +19,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      tie-heavy one, one sorted as ``torch.topk`` hands it on, one of
      duplicate boxes and one of which few boxes survive; the kernel's own
      count of its chunk rounds per image, held against the sorted pool;
-     timed on the seeded pool and on the one of few survivors;
+     timed on the seeded pool and on the one of few survivors; then the
+     same five pools at K = 30000, the evaluator's ``pre_nms_topk``, which
+     K2's large-pool form (a cluster of eight blocks per image) takes;
   6. K3, the fused CEM, against its plain version at (16, 640, 640, 3) in
      bf16 and f32 and at an odd shape that crosses tile borders; library
      time: the port's unfused ``ContourEnhance`` (cuDNN; TF32 off for the
@@ -36,8 +38,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      and K2 (``kernel_cem``, ``kernel_merge``), and timed in turns against
      the same model with those two flags off and ``kernel_fusion`` on (K1,
      cuDNN CEM, unfused pooling and upsampling);
-  10. the ``kernels`` summary line, the card line, and the final
+  10. ``eval_nms``: the evaluator's NMS (``pre_nms_topk=30000``,
+     ``multi_label=True``, conf 0.001) on the flagship's bf16 predictions
+     through K2's large-pool form, identical to the same function with
+     greedy's plain version;
+  11. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
+     ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
+     128, 160x160, C = 64 and 128), then batch 16; kernel against plain
+     version, with kernel, plain, cuDNN and bound times;
+  12. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
+     and ``probe_cem_fb``, each body against its plain version, timed;
+  13. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
+Every path (8-12) runs with every launch count set to 0 just before it and
+read just after; a kernel of the path that did not launch fails the run.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
 call behind a spin kernel so that only the card's time counts.
@@ -55,13 +69,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# A bound takes the card's peak for the operands' type, whichever units the
-# kernel itself runs on: bf16 operands with f32 accumulation count at the
-# tensor cores' rate, f32 operands at the f32 rate.
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
-SPIN_CYCLES = 10_000_000   # about 5 ms at the H100's clock: device_ms
+if not (ROOT / "mmidet_tpu_torch" / "csrc").is_dir():
+    sys.exit("chip_smoke: run it from a checkout of the repository "
+             "(mmidet_tpu_torch/ is missing)")
+sys.path.insert(0, str(ROOT))
+from mmidet_tpu_torch.tools.timing import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound, device_ms, time_ms)
+
 # K1: max |kernel - plain| <= 2% of max |plain|.  The two differ only in
 # the order of f32 sums, but every layer rounds to bf16 (2^-8 relative) at
 # six points, so one flipped rounding compounds through 8 dependent layers.
@@ -89,50 +103,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn()``: a spin kernel queued ahead of the
-    first event keeps the card busy while the host queues ``fn``'s
-    launches, so the host's own time between them (Python, argument
-    checks, launch calls) is not counted, as it is in ``time_ms``."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def bound(flops: float, nbytes: float, peak_flops: float):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -365,9 +335,12 @@ def k2_bound(stats, B: int, K: int, max_det: int):
                  PEAK_F32_FLOPS)
 
 
-def phase_k2(torch, dev):
+def phase_k2(torch, dev, K: int = 4096):
+    """K2 on the five pools of ``k2_pools`` at B = 16 and pool size K:
+    K = 4096 takes the small form, K = 30000 (the evaluator's
+    ``pre_nms_topk``) the large one."""
     from mmidet_tpu_torch.ops import nms_cuda
-    B, K, max_det, thr = 16, 4096, 300, 0.45
+    B, max_det, thr = 16, 300, 0.45
     boxes, scores = nms_pool(torch, B, K, torch.Generator().manual_seed(2))
     boxes, scores = boxes.to(dev), scores.to(dev)
     checks, err, timed = [], 0, {}
@@ -395,14 +368,15 @@ def phase_k2(torch, dev):
                 "device_ms": device_ms(lambda: nms_cuda.nms_greedy(
                     b, s, thr, max_det)),
                 "bound_ms": bound_ms, "bound_by": bound_by}
-    rec = {"max_abs_err": err, **timed["unsorted"],
+    rec = {"pool": K, "max_abs_err": err, **timed["unsorted"],
            "identical": all(c["identical"] for c in checks),
            "scan_as_expected": all(c["scan_as_expected"] for c in checks),
            "checks": checks, "few_survive": timed["few_survive"],
            "plain_ms": time_ms(lambda: nms_cuda.nms_greedy_reference(
-               boxes, scores, thr, max_det), warmup=1),
+               boxes, scores, thr, max_det), reps=3 if K > 4096 else 20,
+               warmup=1),
            "library_ms": None}
-    emit({"phase": "k2_nms_greedy", **rec})
+    emit({"phase": "k2_nms_greedy" if K <= 4096 else "k2_large_pool", **rec})
     if not rec["identical"]:
         raise AssertionError(f"K2 keep_idx/keep_valid differ from the plain "
                              f"version: {checks}")
@@ -650,13 +624,35 @@ def set_kernel_flags(model, kernel_fusion: bool, kernel_cem: bool,
 
 
 def counters():
+    """Each kernel's launch count: (wrapper, attribute) by name; K2's
+    large-pool form counts apart as well as among K2's launches."""
     from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda, transformer_cuda
     from mmidet_tpu_torch.ops import nms_cuda
+    from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3, probe_igemm
     return {"fused_token_transformer":
-            transformer_cuda.fused_token_transformer,
-            "nms_greedy": nms_cuda.nms_greedy,
-            "fused_cem": cem_cuda.fused_cem,
-            "fused_gpt_merge": fusion_cuda.fused_gpt_merge}
+            (transformer_cuda.fused_token_transformer, "launches"),
+            "nms_greedy": (nms_cuda.nms_greedy, "launches"),
+            "nms_greedy_large": (nms_cuda.nms_greedy, "launches_large"),
+            "fused_cem": (cem_cuda.fused_cem, "launches"),
+            "fused_gpt_merge": (fusion_cuda.fused_gpt_merge, "launches"),
+            "conv_chain": (probe_igemm.conv_chain, "launches"),
+            "halo_sum": (probe_cem_r3.halo_sum, "launches"),
+            "lane_matmul": (probe_cem_fb.lane_matmul, "launches")}
+
+
+def zero_counts() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(**want) -> dict:
+    """Every count; with ``want``, raise unless the counts named there are
+    as given and every other one is 0."""
+    got = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    if want and got != {**{k: 0 for k in got}, **want}:
+        raise AssertionError(f"the path missed its kernels: {got}, expected "
+                             f"{want} and no other launch")
+    return got
 
 
 def png(arr) -> bytes:
@@ -702,15 +698,11 @@ def phase_path(torch, dev, card: str, phase: str, vs_phase: str,
         nms(forward())  # warm-up (first launches)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters().values():
-            fn.launches = 0
+        zero_counts()
         pred = forward()
         dets, valid = nms(pred)
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters().items()}
-        if launches != want_launches:
-            raise AssertionError(f"{model_name} missed its kernels: "
-                                 f"{launches}, expected {want_launches}")
+        launches = read_counts(**want_launches)
         n_box = sum(3 * (S // s) ** 2 for s in spec.strides)
         if tuple(pred.shape) != (B, n_box, 5 + spec.nc) or \
                 not bool(torch.isfinite(pred).all()) or \
@@ -804,7 +796,91 @@ def phase_path(torch, dev, card: str, phase: str, vs_phase: str,
           "records": counts, "seconds": time.perf_counter() - t0})
     del svc, model
     torch.cuda.empty_cache()
+    return launches, pred
+
+
+# ----------------------------------------------------------- phases 10-12
+def phase_eval_nms(torch, pred):
+    """The evaluator's NMS (``pre_nms_topk=30000, multi_label=True`` at conf
+    0.001, ``mmidet_tpu/eval/evaluator.py:56-63``) on the flagship's bf16
+    predictions at batch 16: through K2's large-pool form (launch counted
+    from 0), then the same function with greedy's plain version in K2's
+    place on the same pool; the two must be identical."""
+    from unittest import mock
+
+    from mmidet_tpu_torch.ops import nms as nms_mod
+    from mmidet_tpu_torch.ops import nms_cuda
+    kw = {"conf_thres": 0.001, "iou_thres": 0.45, "multi_label": True,
+          "pre_nms_topk": 30000}
+    with torch.inference_mode():
+        zero_counts()
+        dets, valid = nms_mod.non_max_suppression(pred, **kw)
+        torch.cuda.synchronize()
+        launches = read_counts(nms_greedy=1, nms_greedy_large=1)
+        with mock.patch.object(nms_mod, "nms_greedy",
+                               nms_cuda.nms_greedy_reference):
+            p_dets, p_valid = nms_mod.non_max_suppression(pred, **kw)
+            plain_ms = time_ms(lambda: nms_mod.non_max_suppression(
+                pred, **kw), reps=3, warmup=1)
+        conf = pred[..., 4:5].float() * pred[..., 5:].float()
+        rec = {"batch": pred.shape[0], "boxes": pred.shape[1],
+               "classes": pred.shape[2] - 5,
+               "min_pairs_above_conf": int((conf > 0.001).flatten(1).sum(1)
+                                           .min()),
+               "identical": bool(torch.equal(valid, p_valid)
+                                 and torch.equal(dets, p_dets)),
+               "kept_per_image": float(valid.sum(1).float().mean()),
+               "finite": bool(torch.isfinite(dets).all()),
+               "ms": time_ms(lambda: nms_mod.non_max_suppression(pred, **kw),
+                             reps=10, warmup=1),
+               "plain_ms": plain_ms}
+    emit({"phase": "eval_nms", **rec})
+    if not (rec["identical"] and rec["finite"]):
+        raise AssertionError(f"the evaluator's NMS through K2 differs from "
+                             f"its plain path: {rec}")
+    if rec["min_pairs_above_conf"] <= 4096:
+        raise AssertionError(f"the pool never passed 4096: {rec}")
     return launches
+
+
+def phase_p1(torch, dev):
+    """P1's entry point as a user runs it (``python -m
+    mmidet_tpu_torch.tools.probe_igemm``: batch 128 at 160x160, C = 64 and
+    the C = 128 arm), launches counted from 0; then batch 16, the
+    flagship's serving batch."""
+    from mmidet_tpu_torch.tools import probe_igemm
+    zero_counts()
+    arms = probe_igemm.main(["128", "160", "64"], device=str(dev))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["conv_chain"] < 1 or any(
+            v for k, v in launches.items() if k != "conv_chain"):
+        raise AssertionError(f"P1's entry point missed its kernel: {launches}")
+    recs = arms + [probe_igemm.measure(16, 160, 64, dev)]
+    for r in recs:
+        emit({"phase": "p1_conv_chain", **r})
+        torch.cuda.empty_cache()
+    return recs, launches
+
+
+def phase_p2_p3(torch, dev):
+    """P2's and P3's entry points (``probe_cem_r3``, ``probe_cem_fb``), each
+    body against its plain version with its times, launches counted from
+    0."""
+    from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3
+    zero_counts()
+    r3 = probe_cem_r3.main(device=str(dev))
+    fb = probe_cem_fb.main(device=str(dev))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["halo_sum"] < 4 or launches["lane_matmul"] < 3 or any(
+            v for k, v in launches.items()
+            if k not in ("halo_sum", "lane_matmul")):
+        raise AssertionError(f"P2/P3's entry points missed their kernels: "
+                             f"{launches}")
+    for r in r3 + fb:
+        emit({"phase": "p2_p3_cem_probes", **r})
+    return r3, fb, launches
 
 
 def summed(recs, key):
@@ -821,11 +897,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (ROOT / "mmidet_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: run it from a checkout of the repository "
-              "(mmidet_tpu_torch/ is missing)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
     from mmidet_tpu_torch import kernels
 
     dev = torch.device("cuda", 0)
@@ -848,17 +919,21 @@ def main() -> int:
     k2 = phase_k2(torch, dev)
     k3 = phase_k3(torch, dev)
     k4 = phase_k4(torch, dev)
-    first = phase_path(
+    k2_large = phase_k2(torch, dev, K=30000)
+    first, _ = phase_path(
         torch, dev, name, "main_path", "main_path_vs_plain", "yolov5s_gpt4",
         {"kernel_fusion": True},
-        {"fused_token_transformer": 4, "nms_greedy": 1, "fused_cem": 0,
-         "fused_gpt_merge": 0}, reps=5)
-    flagship = phase_path(
+        {"fused_token_transformer": 4, "nms_greedy": 1}, reps=5)
+    flagship, pred = phase_path(
         torch, dev, name, "flagship_path", "flagship_vs_plain",
         "yolov5l_fuse3_fourier",
         {"kernel_cem": True, "kernel_merge": True},
-        {"fused_cem": 1, "fused_gpt_merge": 4, "fused_token_transformer": 0,
-         "nms_greedy": 1}, alt_flags={"kernel_fusion": True})
+        {"fused_cem": 1, "fused_gpt_merge": 4, "nms_greedy": 1},
+        alt_flags={"kernel_fusion": True})
+    eval_nms = phase_eval_nms(torch, pred)
+    del pred
+    p1, p1_launches = phase_p1(torch, dev)
+    p2, p3, probe_launches = phase_p2_p3(torch, dev)
 
     # K1's row sums the four levels of the yolov5s_gpt4 forward
     k1_path = [r for r in k1 if r["d"] <= 512]
@@ -900,7 +975,36 @@ def main() -> int:
          "bound_by": majority_bound(k4),
          "library_ms": summed(k4, "library_ms"),
          "per_shape": [{k: r[k] for k in ("d", "hw", "gated") + shape_keys}
-                       for r in k4]}]}
+                       for r in k4]},
+        # K2 at pools above 4096: its cluster form, on the evaluator's path
+        {"name": "nms_greedy_large", "route": "cuda",
+         "source": "mmidet_tpu_torch/csrc/nms_greedy.cu",
+         "replaces": "mmidet_tpu/ops/nms_pallas.py:82",
+         "launches": eval_nms["nms_greedy_large"],
+         "max_abs_err": k2_large["max_abs_err"], "ms": k2_large["ms"],
+         "plain_ms": k2_large["plain_ms"], "bound_ms": k2_large["bound_ms"],
+         "bound_by": k2_large["bound_by"], "library_ms": None},
+        # P1's row is the probe's own shape (128 x 160 x 160 x 64)
+        {"name": "conv_chain", "route": "cuda",
+         "source": "mmidet_tpu_torch/csrc/conv_chain.cu",
+         "replaces": "tools/_probe_igemm.py:97",
+         "launches": p1_launches["conv_chain"],
+         **{k: p1[0][k] for k in shape_keys},
+         "per_shape": [{k: r[k] for k in ("batch", "hw", "c") + shape_keys}
+                       for r in p1]},
+        # P2's and P3's rows sum their bodies
+        *({"name": name, "route": "cuda",
+           "source": "mmidet_tpu_torch/csrc/cem_probes.cu",
+           "replaces": site, "launches": probe_launches[name],
+           "max_abs_err": max(r["max_abs_err"] for r in recs),
+           "ms": summed(recs, "ms"), "plain_ms": summed(recs, "plain_ms"),
+           "bound_ms": summed(recs, "bound_ms"),
+           "bound_by": majority_bound(recs), "library_ms": None,
+           "per_body": [{k: r[k] for k in ("body",) + shape_keys}
+                        for r in recs]}
+          for name, site, recs in (
+              ("halo_sum", "tools/_probe_cem_r3.py:39", p2),
+              ("lane_matmul", "tools/_probe_cem_fb.py:33", p3)))]}
     emit(summary)
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

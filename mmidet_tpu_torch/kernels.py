@@ -42,9 +42,15 @@ SIGNATURES = {
     "layer_gemm_tile": ("token_transformer", "tt_gemm_tile",
                         [_P] * 5 + [_I] * 5 + [_P]),
     "nms_greedy": ("nms_greedy", "nms_greedy_forward",
-                   [_P] * 5 + [_I] * 3 + [_F, _P]),
+                   [_P] * 6 + [_I] * 3 + [_F, _P]),
     "cem": ("cem", "cem_forward", [_P] * 3 + [_I] * 4 + [_P]),
     "gpt_merge": ("gpt_merge", "gpt_merge_forward", [_P] * 26 + [_I] * 7 + [_P]),
+    # the ports of the TPU probes under tools/ (mmidet_tpu_torch/tools/)
+    "conv_chain": ("conv_chain", "conv_chain_forward",
+                   [_P] * 4 + [_I] * 4 + [_P]),
+    "halo_sum": ("cem_probes", "halo_sum_forward", [_P] * 2 + [_I] * 3 + [_P]),
+    "lane_matmul": ("cem_probes", "lane_matmul_forward",
+                    [_P] * 3 + [_I] * 2 + [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _, _ in SIGNATURES.values()}))
 

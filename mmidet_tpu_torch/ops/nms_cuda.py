@@ -8,7 +8,10 @@ boxes that already carry the class offset: ``max_det`` steps of argmax
 (lowest index on ties), IoU against the pool, suppression.  The plain version
 takes those steps; the kernel sorts the pool by (score descending, index
 ascending) and keeps, in that order, every candidate that no earlier kept
-box suppresses, 64 candidates per dependent round.
+box suppresses, 64 candidates per dependent round.  Pools of up to
+``SMALL_POOL`` slots sort in one block's shared memory; larger ones, up to
+``MAX_POOL`` (the evaluator's ``pre_nms_topk``), across a cluster of eight
+blocks, into a workspace the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from mmidet_tpu_torch import kernels
 
-MAX_POOL = 4096  # the kernel sorts the pool in shared memory
+SMALL_POOL = 4096  # the whole pool sorts in one block's shared memory
+MAX_POOL = 30000  # eight blocks' runs of SMALL_POOL, merged
 
 
 def nms_greedy_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -50,8 +54,10 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
                iou_thres: float = 0.45, max_det: int = 300,
                stats: torch.Tensor | None = None):
     """Batched greedy NMS.  On a CUDA tensor this launches the kernel (one
-    block per image, sort and scan in one launch); on a CPU tensor it runs
-    the plain version.  Scores are finite or -inf.
+    launch: per image one block, or for K > ``SMALL_POOL`` a cluster of
+    eight, sorts and scans); on a CPU tensor it runs the plain version.
+    Scores are finite or -inf.  ``launches`` counts every launch,
+    ``launches_large`` those of the large-pool form.
 
     ``stats``, a (B, 4) int32 tensor on the boxes' device, takes the
     kernel's own count of its scan per image: the dependent rounds, the
@@ -81,14 +87,20 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
                            device=boxes.device)
     keep_valid = torch.empty((b, max_det), dtype=torch.bool,
                              device=boxes.device)
+    # the large form's sorted pools: box, area and index, 24 bytes a slot
+    workspace = (torch.empty(b * k * 6, dtype=torch.float32,
+                             device=boxes.device) if k > SMALL_POOL else None)
     fn = kernels.load("nms_greedy")
     err = fn(boxes.data_ptr(), scores.data_ptr(), keep_idx.data_ptr(),
              keep_valid.data_ptr(),
-             None if stats is None else stats.data_ptr(), b, k, max_det,
-             float(iou_thres), kernels.stream_ptr(boxes))
+             None if stats is None else stats.data_ptr(),
+             None if workspace is None else workspace.data_ptr(), b, k,
+             max_det, float(iou_thres), kernels.stream_ptr(boxes))
     kernels.check("nms_greedy", err)
     nms_greedy.launches += 1
+    nms_greedy.launches_large += k > SMALL_POOL
     return keep_idx, keep_valid
 
 
 nms_greedy.launches = 0
+nms_greedy.launches_large = 0

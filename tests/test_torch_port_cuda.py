@@ -20,6 +20,7 @@ from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda
 from mmidet_tpu_torch.nn import transformer_cuda as tc
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 from mmidet_tpu_torch.ops import nms_cuda
+from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3, probe_igemm
 
 pytestmark = pytest.mark.cuda
 
@@ -201,14 +202,18 @@ def _special_pool(kind, k, gen):
     return boxes, scores
 
 
-def _expected_scan():
-    """``chip_smoke.py:expected_scan``: the kernel's count of its scan, as
-    greedy's answer determines it."""
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.expected_scan
+    return mod
+
+
+def _expected_scan():
+    """``chip_smoke.py:expected_scan``: the kernel's count of its scan, as
+    greedy's answer determines it."""
+    return _chip_smoke().expected_scan
 
 
 # The kernel sorts each pool, then scans it in chunks of 64: ties, pools
@@ -242,9 +247,37 @@ def test_nms_kernel_special_pools_match_plain(cuda, kind, k, max_det):
 
 
 def test_nms_kernel_rejects_large_pools(cuda):
-    with pytest.raises(ValueError, match="K <= 4096"):
-        nms_cuda.nms_greedy(torch.zeros(1, 4097, 4, device=cuda),
-                            torch.zeros(1, 4097, device=cuda))
+    with pytest.raises(ValueError, match="K <= 30000"):
+        nms_cuda.nms_greedy(torch.zeros(1, 30001, 4, device=cuda),
+                            torch.zeros(1, 30001, device=cuda))
+
+
+# The large-pool form (K > 4096: a cluster of eight blocks per image, each
+# sorting a run of 4096, merged by rank) on chip_smoke.py's pools at the
+# evaluator's pre_nms_topk, 30000, and at pool sizes that leave runs
+# partly or wholly padding: greedy's indices exactly, and the kernel's count
+# of its scan as greedy's answer determines it.
+@pytest.mark.parametrize("pool,k", [
+    ("unsorted", 30000), ("tie_heavy", 30000), ("topk_sorted", 30000),
+    ("duplicates", 30000), ("few_survive", 30000), ("unsorted", 4097),
+    ("unsorted", 12289)])
+def test_nms_kernel_large_pools_match_plain(cuda, pool, k):
+    smoke = _chip_smoke()
+    boxes, scores = smoke.nms_pool(torch, 2, k,
+                                   torch.Generator().manual_seed(k))
+    b, s = smoke.k2_pools(torch, boxes.to(cuda), scores.to(cuda))[pool]
+    before = nms_cuda.nms_greedy.launches_large
+    stats = torch.full((2, 4), -1, dtype=torch.int32, device=cuda)
+    got = nms_cuda.nms_greedy(b, s, 0.45, 300, stats=stats)
+    want = nms_cuda.nms_greedy_reference(b, s, 0.45, 300)
+    torch.cuda.synchronize()
+    assert nms_cuda.nms_greedy.launches_large == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(stats, smoke.expected_scan(torch, s, *want, 300))
+    if pool == "few_survive":  # the scan walks every valid candidate
+        assert torch.equal(stats[:, 1], stats[:, 3])
+        assert (stats[:, 0] > 64).all()
 
 
 def test_nms_kernel_rejects_bad_stats(cuda):
@@ -499,3 +532,51 @@ def test_cem_kernel_rejects_a_bad_pack(cuda):
         cem_cuda.fused_cem(x, *p, pack=good[:-1])
     with pytest.raises(ValueError, match="pack must be"):
         cem_cuda.fused_cem(x, *p, pack=good.cpu())
+
+
+# P1, the conv chain, at both channel counts on an odd image that crosses
+# the 16x16 tiles' borders (and one tile smaller than a tile); gate: 2% of
+# max |plain| (one flipped bf16 rounding of the intermediate, spread by the
+# second conv).
+@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("b,h,w", [(2, 37, 45), (1, 9, 5)])
+def test_conv_chain_kernel_matches_plain(cuda, c, b, h, w):
+    before = probe_igemm.conv_chain.launches
+    rec = probe_igemm.check(b, h, w, c, cuda, seed=h)
+    assert probe_igemm.conv_chain.launches == before + 1
+    assert rec["ok"] and rec["max_abs_ref"] > 0
+
+
+def test_conv_chain_kernel_rejects_bad_inputs(cuda):
+    w = torch.zeros(3, 3, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="takes bf16"):
+        probe_igemm.conv_chain(torch.zeros(1, 8, 8, 64, device=cuda), w, w)
+    with pytest.raises(ValueError, match="prepared weights"):
+        probe_igemm.conv_chain(
+            torch.zeros(1, 8, 8, 64, device=cuda, dtype=torch.bfloat16), w, w,
+            prepared=(w, w))
+
+
+# P2 and P3: each probe body against its plain version (P2 one bf16 step,
+# P3 1e-5 of max |plain|), one launch each.
+@pytest.mark.parametrize("body", probe_cem_r3.BODIES)
+def test_halo_sum_kernel_matches_plain(cuda, body):
+    t = probe_cem_r3.inputs(body, cuda, seed=3)
+    before = probe_cem_r3.halo_sum.launches
+    got = probe_cem_r3.halo_sum(body, t)
+    want = probe_cem_r3.halo_sum_reference(body, t)
+    torch.cuda.synchronize()
+    assert probe_cem_r3.halo_sum.launches == before + 1
+    assert float((got - want).abs().max()) <= 2.0 ** -8 * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("body", probe_cem_fb.BODIES)
+def test_lane_matmul_kernel_matches_plain(cuda, body):
+    a, w = probe_cem_fb.inputs(body, cuda, seed=3)
+    before = probe_cem_fb.lane_matmul.launches
+    got = probe_cem_fb.lane_matmul(body, a, w)
+    want = probe_cem_fb.lane_matmul_reference(body, a, w)
+    torch.cuda.synchronize()
+    assert probe_cem_fb.lane_matmul.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -254,3 +254,85 @@ def test_scan_count_follows_from_greedy(name, chunk):
     n_valid = got[:, 3]
     short = got[:, 2] < max_det  # fewer kept than max_det: all consumed
     assert torch.equal(got[short, 1], n_valid[short])
+
+
+def test_non_max_suppression_evaluator_pool_matches_jax():
+    """The evaluator's call (``mmidet_tpu/eval/evaluator.py:56-63``:
+    multi-label, ``pre_nms_topk=30000``, conf 0.001) on a pool past the
+    4096 slots of K2's small form: 10000 boxes x 6 classes, distinct
+    scores, so the top-30000 pool is full."""
+    pred = _prediction(11, b=2, n=10000, nc=6)
+    args = dict(conf_thres=0.001, iou_thres=0.45, max_det=300,
+                pre_nms_topk=30000, multi_label=True)
+    want_d, want_v = jax_nms(jnp.asarray(pred), **args)
+    # 300 greedy steps of small operations on (2, 30000) tensors: beside
+    # other test processes, torch's intra-op threads wait on each other for
+    # minutes, where one thread takes a second
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got_d, got_v = non_max_suppression(torch.from_numpy(pred), **args)
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert got_v.sum() > 100
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-5,
+                               rtol=0)
+
+
+# --- the large-pool form's sort, rehearsed on the CPU ----------------------
+# For pools of 4096 < K <= 30000 the kernel sorts each run of 4096 slots in
+# one block of a cluster of eight and places each valid key at its position
+# in its run plus, for each other run, the number of that run's keys below
+# it (a branchless binary search).  The scan then reads the pool in that
+# order: it must be the order of one stable sort by descending score.
+
+def _descending(s):
+    """csrc/nms_greedy.cu:descending: 32 bits that ascend as s descends."""
+    u = np.where(s == 0, np.float32(0), s).astype(np.float32).view(np.uint32)
+    u = u ^ np.where(u >> 31 == 1, np.uint32(0xffffffff),
+                     np.uint32(0x80000000))
+    return ~u
+
+
+def _cluster_order(scores, run=4096, cluster=8):
+    """The pool positions in the order the large form's workspace holds
+    them (its ``ws_idx``), valid candidates only."""
+    k = len(scores)
+    valid = scores > -np.inf
+    key = np.full(run * cluster, np.uint64(0xffffffffffffffff))
+    desc = np.where(valid, _descending(np.where(valid, scores, 0)),
+                    np.uint32(0xffffffff)).astype(np.uint64)
+    key[:k] = (desc << np.uint64(32)) | np.arange(k, dtype=np.uint64)
+    runs = np.sort(key.reshape(cluster, run), axis=1)
+    order = np.full(int(valid.sum()), -1)
+    for r in range(cluster):
+        mine = runs[r][:int(valid[r * run:(r + 1) * run].sum())]
+        place = np.arange(len(mine))
+        for q in range(cluster):
+            if q == r:
+                continue
+            pos = np.zeros(len(mine), dtype=np.int64)
+            step = run // 2
+            while step:
+                pos += step * (runs[q][pos + step - 1] < mine)
+                step //= 2
+            place += pos + (runs[q][pos] < mine)
+        order[place] = (mine & np.uint64(0xffffffff)).astype(np.int64)
+    return order
+
+
+@pytest.mark.parametrize("k", [4097, 12289, 30000])
+@pytest.mark.parametrize("kind", ["distinct", "tie_heavy", "signed_zeros"])
+def test_cluster_sort_is_one_stable_sort(kind, k):
+    rng = np.random.default_rng(k)
+    scores = (rng.permutation(k) + 1).astype(np.float32) / (k + 1)
+    if kind == "tie_heavy":  # a 1/16 grid: thousands of equal scores
+        scores = np.floor(scores * 16) / 16
+    elif kind == "signed_zeros":  # -0 ties +0, negative scores sort last
+        scores = rng.choice(np.float32([-0.0, 0.0, 0.5, -0.25]), k)
+    scores[rng.random(k) < 0.1] = -np.inf
+    t = torch.from_numpy(scores)
+    key = torch.where(t > -torch.inf, -t, torch.inf)
+    want = torch.sort(key, stable=True).indices[:int((t > -torch.inf).sum())]
+    np.testing.assert_array_equal(_cluster_order(scores), want.numpy())

@@ -13,6 +13,7 @@ from mmidet_tpu_torch import kernels
 from mmidet_tpu_torch.deploy.serve import DetectionService
 from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda, transformer_cuda
 from mmidet_tpu_torch.ops import nms_cuda
+from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3, probe_igemm
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmidet_tpu")
@@ -36,6 +37,9 @@ def test_port_and_chip_scripts_import_no_jax():
     files = sorted((ROOT / "mmidet_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 15
+    assert {"probe_igemm.py", "probe_cem_r3.py", "probe_cem_fb.py",
+            "timing.py"} <= {f.name for f in files
+                             if f.parent.name == "tools"}
     bad = {str(f.relative_to(ROOT)): n for f in files for n in _imports(f)
            if _forbidden(n)}
     assert not bad, bad
@@ -81,16 +85,28 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no layer-GEMM kernel"):
         transformer_cuda.layer_gemm(m, m, torch.zeros(128, device="meta"),
                                     "bias")
+    with pytest.raises(ValueError, match="no conv-chain kernel"):
+        probe_igemm.conv_chain(torch.zeros(1, 8, 8, 64, device="meta"),
+                               None, None)
+    with pytest.raises(ValueError, match="no halo-sum kernel"):
+        probe_cem_r3.halo_sum("lane_wrap",
+                              torch.zeros(82, 80, 192, device="meta"))
+    with pytest.raises(ValueError, match="no lane-matmul kernel"):
+        probe_cem_fb.lane_matmul("slice8", torch.zeros(96, 8, device="meta"),
+                                 torch.zeros(128, 128, device="meta"))
 
 
 def test_every_kernel_is_registered_counted_and_has_a_plain_version():
-    """Four TPU kernels, four CUDA sources, and the layer GEMM that K1 and
-    K4 share as an entry point of its own; each wrapper counts its launches
-    and has its plain PyTorch version beside it."""
+    """The package's four TPU kernels and the three probes under ``tools/``
+    (P2 and P3 in one source), six CUDA sources, and the layer GEMM that K1
+    and K4 share as an entry point of its own; each wrapper counts its
+    launches and has its plain PyTorch version beside it."""
     assert set(kernels.SIGNATURES) == {"token_transformer", "layer_gemm",
                                        "layer_gemm_tile", "nms_greedy",
-                                       "cem", "gpt_merge"}
-    assert kernels.LIBRARIES == ("cem", "gpt_merge", "nms_greedy",
+                                       "cem", "gpt_merge", "conv_chain",
+                                       "halo_sum", "lane_matmul"}
+    assert kernels.LIBRARIES == ("cem", "cem_probes", "conv_chain",
+                                 "gpt_merge", "nms_greedy",
                                  "token_transformer")
     assert kernels.SIGNATURES["layer_gemm"][:2] == ("token_transformer",
                                                     "tt_gemm")
@@ -99,9 +115,12 @@ def test_every_kernel_is_registered_counted_and_has_a_plain_version():
     for mod, name in ((transformer_cuda, "fused_token_transformer"),
                       (transformer_cuda, "layer_gemm"),
                       (nms_cuda, "nms_greedy"), (cem_cuda, "fused_cem"),
-                      (fusion_cuda, "fused_gpt_merge")):
+                      (fusion_cuda, "fused_gpt_merge"),
+                      (probe_igemm, "conv_chain"), (probe_cem_r3, "halo_sum"),
+                      (probe_cem_fb, "lane_matmul")):
         assert isinstance(getattr(mod, name).launches, int)
         assert callable(getattr(mod, name + "_reference"))
+    assert isinstance(nms_cuda.nms_greedy.launches_large, int)
 
 
 def test_kernel_sources_call_no_library():
