@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main paths spend their time on one NVIDIA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [p1]
 
 Builds the same seeded deploy models as ``chip_smoke.py`` (BN folded, bf16,
 batch 16 at 640x640) and prints JSON lines:
@@ -12,6 +12,9 @@ batch 16 at 640x640) and prints JSON lines:
   * ``k3_phases``: K3's bf16 kernel at the flagship's shape with all of its
     phases, each phase alone (input tile, conv2, bank, conv3, store) and
     none, from ``csrc/cem.cu`` built with ``-DCEM_SKIP_PHASES=<mask>``;
+  * ``p1_phases``, only when ``p1`` is the only argument, and then
+    alone: P1 at the probe's shapes as built and with parts of its
+    consumers' work left out (``-DP1_SKIP=<mask>``);
   * ``memory_format``: yolov5s_gpt4's forward time in NCHW and in
     channels_last memory format, timed in turns (nchw, cl, cl, nchw) with
     CUDA events;
@@ -157,6 +160,80 @@ def k3_phases(torch, card: str) -> None:
           flush=True)
 
 
+# P1 (csrc/conv_chain.cu) built with -DP1_SKIP=<mask>, the work its kernel
+# leaves out (bit i: item i of this list)
+_P1_PARTS = ("products", "A loads", "SiLU", "stores")
+P1_VARIANTS = {"all": [],
+               **{f"no {n}": [f"-DP1_SKIP={1 << i}"]
+                  for i, n in enumerate(_P1_PARTS)},
+               "no epilogue": ["-DP1_SKIP=12"],
+               "no products, no A loads": ["-DP1_SKIP=3"],
+               "none": [f"-DP1_SKIP={(1 << len(_P1_PARTS)) - 1}"]}
+
+
+def p1_phases(torch, card: str) -> None:
+    """P1's device time at the probe's shapes in each build of
+    ``P1_VARIANTS``: the kernel as built and with parts of its work left
+    out; the error of the full build against the plain version.  Built
+    in parallel; timed in turns (every variant, then again in reverse
+    order)."""
+    variants = P1_VARIANTS
+    import ctypes
+    import subprocess
+
+    from chip_smoke import device_ms
+    from mmidet_tpu_torch import kernels
+    from mmidet_tpu_torch.tools import probe_igemm
+    kernels.BUILD.mkdir(exist_ok=True)
+    libs = {n: kernels.BUILD / f"libconv_chain_v{i}.so"
+            for i, n in enumerate(variants)}
+    builds = {n: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-o", str(libs[n]),
+         str(kernels.CSRC / "conv_chain.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for n, flags in variants.items()}
+    ptxas = {}
+    for n, b in builds.items():
+        log = b.communicate()[0].decode()
+        if b.returncode:
+            raise RuntimeError(log)
+        ptxas[n] = [ln.strip() for ln in log.splitlines()
+                    if "Used" in ln or "spill" in ln]
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fns = {}
+    for n in variants:
+        fn = ctypes.CDLL(str(libs[n])).conv_chain_forward
+        fn.argtypes = kernels.SIGNATURES["conv_chain"][2]
+        fns[n] = fn
+    for b, hw, c in ((128, 160, 64), (128, 160, 128), (16, 160, 64)):
+        x, w1, w2 = probe_igemm.inputs(b, hw, hw, c, dev)
+        p1, p2 = (probe_igemm.prepare_weights(w) for w in (w1, w2))
+        out = torch.empty_like(x)
+        flops, _ = probe_igemm.chain_work(b, hw, hw, c)
+        ms = {n: [] for n in variants}
+        for n in [*variants, *reversed(variants)]:
+            def run(fn=fns[n]):
+                kernels.check("conv_chain", fn(
+                    x.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+                    out.data_ptr(), b, hw, hw, c, stream))
+            ms[n].append(device_ms(run, reps=10))
+        out.zero_()
+        kernels.check("conv_chain", fns["all"](
+            x.data_ptr(), p1.data_ptr(), p2.data_ptr(), out.data_ptr(), b,
+            hw, hw, c, stream))
+        err = float((out.float() - probe_igemm.conv_chain_reference(
+            x, w1, w2).float()).abs().max())
+        print(json.dumps({"phase": "p1_phases", "card": card,
+                          "shape": [b, hw, hw, c], "device_ms": ms,
+                          "max_abs_err": err,
+                          "tflops": {n: flops / min(v) / 1e9
+                                     for n, v in ms.items()},
+                          "ptxas": ptxas}), flush=True)
+        del x, out
+        torch.cuda.empty_cache()
+
+
 def group_of(name: str, groups) -> str:
     low = name.lower()
     for group, keys in groups:
@@ -269,6 +346,9 @@ def main() -> int:
     ir = torch.rand(B, S, S, 3, generator=gen, device=dev)
     label = {"card": card, "batch": B, "img": S}
 
+    if sys.argv[1:] == ["p1"]:
+        p1_phases(torch, card)
+        return 0
     gemm_tiles(torch, card)
     k3_phases(torch, card)
     model = build_model(torch, get_model_spec("yolov5s_gpt4")).to(

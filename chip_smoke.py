@@ -45,7 +45,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   11. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
-     version, with kernel, plain, cuDNN and bound times;
+     version, with kernel, plain, cuDNN and bound times, TFLOP/s, the
+     persistent grid (blocks, tiles, shared memory a block) and ptxas's
+     registers and spills;
   12. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
      and ``probe_cem_fb``, each body against its plain version, timed;
   13. the ``kernels`` summary line, the card line, and the final
@@ -857,6 +859,15 @@ def phase_p1(torch, dev):
             v for k, v in launches.items() if k != "conv_chain"):
         raise AssertionError(f"P1's entry point missed its kernel: {launches}")
     recs = arms + [probe_igemm.measure(16, 160, 64, dev)]
+    report = recs[0]["ptxas"]
+    if len(report) != 2 or any("spill_stores" not in r for r in report):
+        raise AssertionError(f"no ptxas report of P1's two kernels (C = 64 "
+                             f"and 128) for the library built: {report}")
+    bad = [r for r in report
+           if r["spill_stores"] or r["spill_loads"] or r["wgmma_serialized"]]
+    if bad:
+        raise AssertionError(f"P1's kernel spills registers or has its "
+                             f"wgmma serialised: {bad}")
     for r in recs:
         emit({"phase": "p1_conv_chain", **r})
         torch.cuda.empty_cache()
@@ -990,6 +1001,8 @@ def main() -> int:
          "replaces": "tools/_probe_igemm.py:97",
          "launches": p1_launches["conv_chain"],
          **{k: p1[0][k] for k in shape_keys},
+         "device_ms": p1[0]["device_ms"], "launch": p1[0]["launch"],
+         "ptxas": p1[0]["ptxas"],
          "per_shape": [{k: r[k] for k in ("batch", "hw", "c") + shape_keys}
                        for r in p1]},
         # P2's and P3's rows sum their bodies

@@ -65,6 +65,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -278,145 +280,6 @@ struct GemmTraits {
   static constexpr int kMinBlocks = 232448 / kBytes;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// arrive and expect `bytes` of TMA traffic in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// spin until the phase of parity `parity` has completed; a wait of 2^28
-// polls (seconds) traps, so that a broken pipeline ends the launch with an
-// error instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// the (c0, c1) box of a 2-D tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma operand descriptor of a K-major tile with 128-byte rows under the
-// 128-byte swizzle: 8-row groups 1024 bytes apart; a k16 step inside the
-// 64-wide tile advances the start address by 32 bytes
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads across a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define TT_F8(i)                                                          \
-  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),     \
-      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-#define TT_F32(i) TT_F8(i), TT_F8((i) + 8), TT_F8((i) + 16), TT_F8((i) + 24)
-
-// d (64 x N f32, registers) += A (64 x 16) B (N x 16)^T, both operands in
-// shared memory as descriptors.  Thread t of the warpgroup holds, in
-// d[4j .. 4j+3], columns 8j + 2 (t % 4) + {0, 1} of row 16 (t / 32) +
-// (t % 32) / 4 and of the row 8 below it.
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
-                                           uint64_t db) {
-  if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31},\n"
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : TT_F32(0)
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16\n{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},\n"
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : TT_F32(0), TT_F32(32)
-        : "l"(da), "l"(db), "r"(1));
-  } else {
-    static_assert(N == 256, "wgmma tiles are 64, 128 or 256 wide here");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16\n{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-        "%127},\n"
-        "%128, %129, p, 1, 1, 0, 0;\n}\n"
-        : TT_F32(0), TT_F32(32), TT_F32(64), TT_F32(96)
-        : "l"(da), "l"(db), "r"(1));
-  }
-}
-
-#undef TT_F32
-#undef TT_F8
-
 // bias, epilogue and one rounding for 8 neighbouring columns of one row;
 // R is read and C written 16 bytes at a time
 template <int EPI>
@@ -561,31 +424,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA,
 }
 
 // ------------------------------------------------------------ GEMM (host)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // tensor map of a (rows, K) row-major bf16 operand, box kBK x box_rows,
 // 128-byte swizzle, zeros outside the operand
 int encode_operand(CUtensorMap* map, const bf16* p, int rows, int K,

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,6 +49,9 @@ SIGNATURES = {
     # the ports of the TPU probes under tools/ (mmidet_tpu_torch/tools/)
     "conv_chain": ("conv_chain", "conv_chain_forward",
                    [_P] * 4 + [_I] * 4 + [_P]),
+    # P1's launch shape: persistent blocks, tiles, shared memory, ring
+    "conv_chain_config": ("conv_chain", "conv_chain_config",
+                          [_I] * 4 + [_P]),
     "halo_sum": ("cem_probes", "halo_sum_forward", [_P] * 2 + [_I] * 3 + [_P]),
     "lane_matmul": ("cem_probes", "lane_matmul_forward",
                     [_P] * 3 + [_I] * 2 + [_P]),
@@ -87,7 +91,7 @@ def build_all() -> float:
     for name in todo:
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD / f"{name}.log", "w")
+        log = open(_log_path(name), "w")
         procs[name] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
@@ -98,17 +102,49 @@ def build_all() -> float:
         if rc == 0:
             os.replace(tmp, out)
         else:
-            failed.append(f"{name}:\n{(BUILD / f'{name}.log').read_text()}")
+            failed.append(f"{name}:\n{_log_path(name).read_text()}")
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
+def _log_path(name: str) -> Path:
+    # named after the library it built, so a kept library keeps its report
+    return _lib_path(name).with_suffix(".log")
+
+
 def build_log(name: str) -> str:
     """nvcc's output (with ``-Xptxas -v``: registers, shared memory,
-    spills) from the last build of library ``name`` in this checkout."""
-    p = BUILD / f"{name}.log"
+    spills) from the build of library ``name`` as its sources stand now
+    ("" when that library was not built in this checkout)."""
+    p = _log_path(name)
     return p.read_text() if p.exists() else ""
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel of library ``name``'s last build: ptxas's registers, spill
+    bytes (stores, loads) and whether it serialised the kernel's wgmma
+    instructions (its performance warning C7520), from ``build_log``."""
+    log = build_log(name)
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "wgmma_serialized": any(
+                "C7520" in ln and m.group(1) in ln
+                for ln in log.splitlines())}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str):

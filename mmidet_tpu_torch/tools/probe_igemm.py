@@ -21,6 +21,7 @@ card (defaults: 128 160 64, the probe's own).
 
 from __future__ import annotations
 
+import ctypes
 import json
 import sys
 
@@ -84,9 +85,7 @@ def conv_chain(x, w1, w2, prepared=None) -> torch.Tensor:
         raise ValueError(f"no conv-chain kernel for {x.device}")
     _check(x, w1, w2)
     b, h, w, c = x.shape
-    if min(b, h, w) < 1 or b > 65535:
-        raise ValueError(f"conv chain takes 1 <= B <= 65535 and H, W >= 1; "
-                         f"got {tuple(x.shape)}")
+    check_launch(b, h, w)
     if x.dtype != torch.bfloat16:
         raise ValueError(f"conv-chain kernel takes bf16; got {x.dtype}")
     xin = x.contiguous()
@@ -109,6 +108,38 @@ def conv_chain(x, w1, w2, prepared=None) -> torch.Tensor:
 
 
 conv_chain.launches = 0
+
+
+TILE = 16          # the kernel's output tile: TILE x TILE pixels
+MAX_TILES = 2 ** 31 - 1
+
+
+def tiles(b: int, h: int, w: int) -> int:
+    """The kernel's 16 x 16 output tiles for (B, H, W); its persistent
+    blocks walk them in the order (image, tile row, tile column)."""
+    return b * -(-h // TILE) * -(-w // TILE)
+
+
+def check_launch(b: int, h: int, w: int) -> None:
+    """Raise unless the kernel takes (B, H, W): each at least 1 (any batch:
+    the persistent grid does not grow with B) and fewer than 2^31 tiles."""
+    if min(b, h, w) < 1:
+        raise ValueError(f"conv chain takes B, H, W >= 1; got {(b, h, w)}")
+    if tiles(b, h, w) > MAX_TILES:
+        raise ValueError(f"conv chain takes at most {MAX_TILES} tiles of "
+                         f"{TILE}x{TILE}; got {tiles(b, h, w)} for "
+                         f"{(b, h, w)}")
+
+
+def launch_config(b: int, h: int, w: int, c: int) -> dict:
+    """The kernel's launch for (B, H, W, C), from its own source (on the
+    card): persistent blocks, tiles, shared-memory bytes a block, weight
+    stages in the ring, input buffers."""
+    cfg = (ctypes.c_int * 5)()
+    kernels.check("conv_chain_config", kernels.load("conv_chain_config")(
+        b, h, w, c, ctypes.addressof(cfg)))
+    return dict(zip(("blocks", "tiles", "smem_bytes", "ring_stages",
+                     "input_buffers"), cfg))
 
 
 def library_chain(x_cl, w1_cl, w2_cl) -> torch.Tensor:
@@ -156,13 +187,16 @@ def check(b: int, h: int, w: int, c: int, device, seed: int = 0) -> dict:
 
 def measure(b: int, hw: int, c: int, device) -> dict:
     """Kernel against plain version at the given size, and the times of
-    kernel, plain version and cuDNN, beside the bound."""
+    kernel, plain version and cuDNN, beside the bound.  The last timed
+    launch's output must equal the first's bit for bit (the kernel is
+    deterministic: a race shows as a difference between launches)."""
     from mmidet_tpu_torch.tools.timing import PEAK_BF16_FLOPS, timed
     x, w1, w2 = inputs(b, hw, hw, c, device)
     prep = (prepare_weights(w1), prepare_weights(w2))
     want = conv_chain_reference(x, w1, w2).float()
     top = float(want.abs().max())
-    err = float((conv_chain(x, w1, w2, prep).float() - want).abs().max())
+    first = conv_chain(x, w1, w2, prep)
+    err = float((first.float() - want).abs().max())
     x_cl = x.permute(0, 3, 1, 2)  # NCHW view, channels-last memory
     w1_cl, w2_cl = (w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last) for w in (w1, w2))
@@ -174,15 +208,26 @@ def measure(b: int, hw: int, c: int, device) -> dict:
                              f"version at {b}x{hw}x{hw}x{c}: {err} at |ref| "
                              f"{top}")
     flops, nbytes = chain_work(b, hw, hw, c)
+    last = [first]
+
+    def run():
+        last[0] = conv_chain(x, w1, w2, prep)
     rec = {"batch": b, "hw": hw, "c": c, "max_abs_err": err,
            "max_abs_ref": top, "tol": TOL, "ok": True,
            "library_max_abs_err": lib_err, "gflop": flops / 1e9,
            "mbytes": nbytes / 1e6,
-           **timed(lambda: conv_chain(x, w1, w2, prep),
-                   lambda: conv_chain_reference(x, w1, w2),
+           **timed(run, lambda: conv_chain_reference(x, w1, w2),
                    lambda: library_chain(x_cl, w1_cl, w2_cl), flops, nbytes,
                    PEAK_BF16_FLOPS, plain_reps=3)}
+    if last[0] is first or not torch.equal(last[0], first):
+        raise AssertionError(f"conv chain kernel gave another output on a "
+                             f"later launch at {b}x{hw}x{hw}x{c}")
+    rec["repeat_identical"] = True
     rec["tflops"] = flops / rec["ms"] / 1e9
+    rec["device_tflops"] = flops / rec["device_ms"] / 1e9
+    rec["library_tflops"] = flops / rec["library_ms"] / 1e9
+    rec["launch"] = launch_config(b, hw, hw, c)
+    rec["ptxas"] = kernels.ptxas_report("conv_chain")
     return rec
 
 

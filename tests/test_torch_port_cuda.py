@@ -535,16 +535,117 @@ def test_cem_kernel_rejects_a_bad_pack(cuda):
 
 
 # P1, the conv chain, at both channel counts on an odd image that crosses
-# the 16x16 tiles' borders (and one tile smaller than a tile); gate: 2% of
-# max |plain| (one flipped bf16 rounding of the intermediate, spread by the
-# second conv).
+# the 16x16 tiles' borders, images smaller than a tile and than the input's
+# 20x20 TMA box; gate: 2% of max |plain| (one flipped bf16 rounding of the
+# intermediate, spread by the second conv).
 @pytest.mark.parametrize("c", [64, 128])
-@pytest.mark.parametrize("b,h,w", [(2, 37, 45), (1, 9, 5)])
+@pytest.mark.parametrize("b,h,w", [(2, 37, 45), (1, 9, 5), (1, 1, 1),
+                                   (3, 2, 17)])
 def test_conv_chain_kernel_matches_plain(cuda, c, b, h, w):
     before = probe_igemm.conv_chain.launches
     rec = probe_igemm.check(b, h, w, c, cuda, seed=h)
     assert probe_igemm.conv_chain.launches == before + 1
     assert rec["ok"] and rec["max_abs_ref"] > 0
+
+
+# More tiles than persistent blocks: each block walks several tiles, and the
+# next tile's input loads under this one across images; and a batch past
+# the old grid's 65535 images.
+@pytest.mark.parametrize("c,b,h,w", [(128, 40, 64, 64), (128, 5, 160, 160),
+                                     (64, 40, 64, 64), (64, 70000, 1, 1)])
+def test_conv_chain_kernel_walks_many_tiles(cuda, c, b, h, w):
+    cfg = probe_igemm.launch_config(b, h, w, c)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert cfg["tiles"] == probe_igemm.tiles(b, h, w) > cfg["blocks"]
+    assert cfg["blocks"] == sms and cfg["smem_bytes"] <= 232448
+    before = probe_igemm.conv_chain.launches
+    rec = probe_igemm.check(b, h, w, c, cuda, seed=b)
+    assert probe_igemm.conv_chain.launches == before + 1
+    assert rec["ok"] and rec["max_abs_ref"] > 0
+
+
+# P1's SiLU element by element.  Identity weights at the centre tap pass
+# each channel straight through both convs (one product by 1, so the sums
+# are exact): out = bf16(silu(bf16(silu(x)))).  x runs over every bf16
+# value in [-12, 6] of magnitude 2^-6 or more, and 0, -90 and -100, where
+# exp(-x) overflows f32.  A value whose SiLU, or its SiLU's SiLU, lies
+# within 2^-16 (relative) of a bf16 rounding tie is left out: there an f32
+# SiLU within its own error (about 1e-6 here) may round either way.  Gate:
+# one bf16 step of |plain| per element, 0 where plain is 0.
+def _silu_tie_distance(s):
+    """|s|'s relative distance to the nearest bf16 rounding tie (f64)."""
+    _, e = torch.frexp(s)
+    step = torch.ldexp(torch.ones_like(s), e - 8)
+    q = s.abs() / step
+    d = (q - q.floor() - 0.5).abs() * step / s.abs()
+    return torch.where(s == 0, torch.inf, d)
+
+
+def _silu_case(c, device):
+    v = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).double()
+    v = v[torch.isfinite(v) & (v >= -12) & (v <= 6) & (v.abs() >= 2 ** -6)]
+    v = torch.cat([v, torch.tensor([0.0, -90.0, -100.0], dtype=v.dtype)])
+
+    def silu(s):
+        return s / (1 + torch.exp(-s))
+    y = silu(v).to(torch.bfloat16).double()
+    v = v[(_silu_tie_distance(silu(v)) >= 2 ** -16)
+          & (_silu_tie_distance(silu(y)) >= 2 ** -16)]
+    v = v[torch.randperm(v.numel(), generator=torch.Generator().manual_seed(
+        c))]
+    side = -(-v.numel() // (6 * c))  # a 6 x side image holds every value
+    x = v.repeat(2)[:6 * side * c].reshape(1, 6, side, c)
+    w = torch.zeros(3, 3, c, c, dtype=torch.float64)
+    w[1, 1] = torch.eye(c, dtype=torch.float64)
+    return (x.to(device, torch.bfloat16), w.to(device, torch.bfloat16),
+            v.numel())
+
+
+def _silu_gate(got, want):
+    """Per element: |got - want| within one bf16 step of |want|."""
+    got, want = got.double(), want.double()
+    _, e = torch.frexp(want)
+    step = torch.where(want == 0, 0.0, torch.ldexp(torch.ones_like(want),
+                                                   e - 8))
+    return (got - want).abs() <= step
+
+
+@pytest.mark.parametrize("c", [64, 128])
+def test_conv_chain_kernel_silu_per_element(cuda, c):
+    x, w, n = _silu_case(c, cuda)
+    assert n > 2000
+    got = probe_igemm.conv_chain(x, w, w)
+    want = probe_igemm.conv_chain_reference(x, w, w)
+    ok = _silu_gate(got, want)
+    bad = (~ok).nonzero()[:5].tolist()
+    assert bool(ok.all()), (
+        f"{int((~ok).sum())} of {ok.numel()} elements past one bf16 step, "
+        f"e.g. x {[float(x[tuple(i)]) for i in bad]}: got "
+        f"{[float(got[tuple(i)]) for i in bad]}, want "
+        f"{[float(want[tuple(i)]) for i in bad]}")
+
+
+# Repeated launches at the probe's full size give the same output bit for
+# bit: the kernel is deterministic, so an intermittent race (one seen at
+# this size only on repeated launches) shows as a difference.
+@pytest.mark.parametrize("c", [64, 128])
+def test_conv_chain_kernel_repeats_bit_for_bit(cuda, c):
+    x, w1, w2 = probe_igemm.inputs(128, 160, 160, c, cuda)
+    prep = (probe_igemm.prepare_weights(w1), probe_igemm.prepare_weights(w2))
+    first = probe_igemm.conv_chain(x, w1, w2, prep)
+    for i in range(10):
+        again = probe_igemm.conv_chain(x, w1, w2, prep)
+        diff = int((again != first).sum())
+        assert diff == 0, f"launch {i + 1}: {diff} elements differ"
+
+
+def test_conv_chain_kernel_builds_without_spills_or_serial_wgmma(cuda):
+    probe_igemm.launch_config(1, 1, 1, 64)  # builds and loads the library
+    report = probe_igemm.kernels.ptxas_report("conv_chain")
+    assert len(report) == 2  # C = 64 and C = 128
+    assert all(r["spill_stores"] == r["spill_loads"] == 0
+               and not r["wgmma_serialized"] for r in report)
 
 
 def test_conv_chain_kernel_rejects_bad_inputs(cuda):

@@ -76,6 +76,25 @@ def test_prepare_weights_is_each_tap_transposed():
     assert p[5, 7, 3] == w[1, 2, 3, 7].to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("b,h,w,n", [(1, 1, 1, 1), (3, 2, 17, 6),
+                                     (128, 160, 160, 12800),
+                                     (70000, 1, 1, 70000)])
+def test_conv_chain_tiles_any_batch(b, h, w, n):
+    """The persistent grid takes any batch: the kernel's 16x16 tiles of
+    (B, H, W), none refused below 2^31 tiles."""
+    assert probe_igemm.tiles(b, h, w) == n
+    probe_igemm.check_launch(b, h, w)
+
+
+def test_conv_chain_launch_rules():
+    for shape in ((0, 8, 8), (1, 0, 8), (1, 8, 0)):
+        with pytest.raises(ValueError, match="B, H, W >= 1"):
+            probe_igemm.check_launch(*shape)
+    probe_igemm.check_launch(2 ** 31 - 1, 16, 16)
+    with pytest.raises(ValueError, match="at most 2147483647 tiles"):
+        probe_igemm.check_launch(2 ** 31 - 1, 17, 16)
+
+
 def test_conv_chain_entry_point_on_the_cpu(capsys):
     recs = probe_igemm.main(["2", "32", "64"], device="cpu")
     assert [r["c"] for r in recs] == [64, 128]

@@ -104,7 +104,8 @@ def test_every_kernel_is_registered_counted_and_has_a_plain_version():
     assert set(kernels.SIGNATURES) == {"token_transformer", "layer_gemm",
                                        "layer_gemm_tile", "nms_greedy",
                                        "cem", "gpt_merge", "conv_chain",
-                                       "halo_sum", "lane_matmul"}
+                                       "conv_chain_config", "halo_sum",
+                                       "lane_matmul"}
     assert kernels.LIBRARIES == ("cem", "cem_probes", "conv_chain",
                                  "gpt_merge", "nms_greedy",
                                  "token_transformer")
@@ -112,6 +113,8 @@ def test_every_kernel_is_registered_counted_and_has_a_plain_version():
                                                     "tt_gemm")
     assert kernels.SIGNATURES["layer_gemm_tile"][:2] == ("token_transformer",
                                                          "tt_gemm_tile")
+    assert kernels.SIGNATURES["conv_chain_config"][:2] == (
+        "conv_chain", "conv_chain_config")
     for mod, name in ((transformer_cuda, "fused_token_transformer"),
                       (transformer_cuda, "layer_gemm"),
                       (nms_cuda, "nms_greedy"), (cem_cuda, "fused_cem"),
@@ -147,6 +150,34 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     hdr.write_text(hdr.read_text() + "\n// edited\n")
     after = {n: kernels._lib_path(n).name for n in kernels.LIBRARIES}
     assert all(before[n] != after[n] for n in before)
+
+
+def test_ptxas_report_is_the_built_librarys_own(tmp_path, monkeypatch):
+    """The build log is named after the library it built (its source
+    digest): a log of another build of the same source is never read, and
+    a library whose sources changed has no report until it is built."""
+    monkeypatch.setattr(kernels, "BUILD", tmp_path)
+    (tmp_path / "conv_chain.log").write_text(
+        "ptxas info    : Compiling entry function 'stale' for 'sm_90a'\n")
+    assert kernels.build_log("conv_chain") == ""
+    assert kernels.ptxas_report("conv_chain") == []
+    log = kernels._log_path("conv_chain")
+    assert log.name == kernels._lib_path("conv_chain").stem + ".log"
+    log.write_text(
+        "ptxas info    : Compiling entry function 'k64' for 'sm_90a'\n"
+        "ptxas info    : Function properties for k64\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 5 barriers\n"
+        "ptxas info    : Compiling entry function 'k128' for 'sm_90a'\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 232 registers\n"
+        "ptxas /tmp/x.ptx, line 9; warning : (C7520) wgmma serialized in "
+        "function 'k128'\n")
+    assert kernels.ptxas_report("conv_chain") == [
+        {"kernel": "k64", "wgmma_serialized": False, "spill_stores": 0,
+         "spill_loads": 0, "registers": 168},
+        {"kernel": "k128", "wgmma_serialized": True, "spill_stores": 8,
+         "spill_loads": 4, "registers": 232}]
 
 
 def test_kernel_sources_are_in_the_package():
