@@ -49,7 +49,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      persistent grid (blocks, tiles, shared memory a block) and ptxas's
      registers and spills;
   12. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
-     and ``probe_cem_fb``, each body against its plain version, timed;
+     and ``probe_cem_fb``, each body against its plain version, timed
+     beside one PyTorch call of the same function (its error too) and an
+     empty launch through the same path (the launch floor), timed in turns
+     with each body;
   13. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
 Every path (8-12) runs with every launch count set to 0 just before it and
@@ -876,8 +879,8 @@ def phase_p1(torch, dev):
 
 def phase_p2_p3(torch, dev):
     """P2's and P3's entry points (``probe_cem_r3``, ``probe_cem_fb``), each
-    body against its plain version with its times, launches counted from
-    0."""
+    body against its plain version with its times, the library call's and
+    the launch floor's, launches counted from 0."""
     from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3
     zero_counts()
     r3 = probe_cem_r3.main(device=str(dev))
@@ -1005,16 +1008,24 @@ def main() -> int:
          "ptxas": p1[0]["ptxas"],
          "per_shape": [{k: r[k] for k in ("batch", "hw", "c") + shape_keys}
                        for r in p1]},
-        # P2's and P3's rows sum their bodies
+        # P2's and P3's rows sum their bodies; each body beside the launch
+        # floor timed in turns with it, and the row the floor's range over
+        # the probe's run
         *({"name": name, "route": "cuda",
            "source": "mmidet_tpu_torch/csrc/cem_probes.cu",
            "replaces": site, "launches": probe_launches[name],
            "max_abs_err": max(r["max_abs_err"] for r in recs),
-           "ms": summed(recs, "ms"), "plain_ms": summed(recs, "plain_ms"),
-           "bound_ms": summed(recs, "bound_ms"),
-           "bound_by": majority_bound(recs), "library_ms": None,
-           "per_body": [{k: r[k] for k in ("body",) + shape_keys}
-                        for r in recs]}
+           **{k: summed(recs, k) for k in (
+               "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+               "library_device_ms")},
+           "bound_by": majority_bound(recs),
+           **{f"{k}_range": [min(x for r in recs for x in r[f"{k}_turns"]),
+                             max(x for r in recs for x in r[f"{k}_turns"])]
+              for k in ("floor_ms", "floor_device_ms")},
+           "per_body": [{k: r[k] for k in ("body",) + shape_keys + (
+               "device_ms", "library_device_ms", "library_max_abs_err",
+               "floor_ms", "floor_device_ms", "floor_ms_turns",
+               "floor_device_ms_turns")} for r in recs]}
           for name, site, recs in (
               ("halo_sum", "tools/_probe_cem_r3.py:39", p2),
               ("lane_matmul", "tools/_probe_cem_fb.py:33", p3)))]}

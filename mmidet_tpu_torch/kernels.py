@@ -55,6 +55,8 @@ SIGNATURES = {
     "halo_sum": ("cem_probes", "halo_sum_forward", [_P] * 2 + [_I] * 3 + [_P]),
     "lane_matmul": ("cem_probes", "lane_matmul_forward",
                     [_P] * 3 + [_I] * 2 + [_P]),
+    # an empty kernel: what one launch through this path costs
+    "launch_floor": ("cem_probes", "empty_forward", [_P]),
 }
 LIBRARIES = tuple(sorted({lib for lib, _, _ in SIGNATURES.values()}))
 
@@ -177,8 +179,35 @@ def check(name: str, err: int) -> None:
                            f"({msg(err).decode()})")
 
 
+# the current stream's pointer without a Stream object, where torch has it
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
+    """The pointer of the current stream on ``t``'s device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is contiguous from a 16-byte aligned start (what a
+    kernel's 16-byte loads need), else a contiguous copy."""
+    if t.is_contiguous() and not t.data_ptr() % 16:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def check_out(out: torch.Tensor, shape: tuple, dtype, device) -> None:
+    """Raise unless ``out`` can take a kernel's output in place: ``shape``,
+    ``dtype``, on ``device``, contiguous and, on a card, 16-byte aligned."""
+    if (out.shape != shape or out.dtype != dtype or out.device != device
+            or not out.is_contiguous()
+            or (device.type == "cuda" and out.data_ptr() % 16)):
+        raise ValueError(
+            f"out must be a contiguous, 16-byte aligned {tuple(shape)} "
+            f"{dtype} tensor on {device}; got {tuple(out.shape)} "
+            f"{out.dtype} on {out.device}")
 
 
 def stamp(tensors) -> tuple:

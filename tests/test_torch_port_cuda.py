@@ -681,3 +681,102 @@ def test_lane_matmul_kernel_matches_plain(cuda, body):
     torch.cuda.synchronize()
     assert probe_cem_fb.lane_matmul.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# P2 at shapes with a ragged last warp, rows shorter than a warp and a
+# single pixel a row (halo_roll's zeros on both sides).
+@pytest.mark.parametrize("r,g", [(1, 1), (7, 33), (80, 80)])
+@pytest.mark.parametrize("body", probe_cem_r3.BODIES)
+def test_halo_sum_kernel_any_shape(cuda, body, r, g):
+    t = probe_cem_r3.inputs(body, cuda, seed=r + g, r=r, g=g)
+    got = probe_cem_r3.halo_sum(body, t, r, g)
+    want = probe_cem_r3.halo_sum_reference(body, t, r, g)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 2.0 ** -8 * max(
+        1.0, float(want.abs().max()))
+    assert bool((got == got[..., :1]).all())  # one value on all 8 lanes
+
+
+# P3 at any row count: one row, a ragged last 16-row tile, the probe's 96
+# and more tiles than the probe has.
+@pytest.mark.parametrize("m", [1, 17, 96, 200])
+@pytest.mark.parametrize("body", probe_cem_fb.BODIES)
+def test_lane_matmul_kernel_any_rows(cuda, body, m):
+    a, w = probe_cem_fb.inputs(body, cuda, seed=m, m=m)
+    got = probe_cem_fb.lane_matmul(body, a, w)
+    want = probe_cem_fb.lane_matmul_reference(body, a, w)
+    torch.cuda.synchronize()
+    assert got.shape == (m, 128)
+    assert float((got - want).abs().max()) <= probe_cem_fb.TOL * float(
+        want.abs().max())
+
+
+_PROBE_CALLS = [(probe_cem_r3, b) for b in probe_cem_r3.BODIES] + [
+    (probe_cem_fb, b) for b in probe_cem_fb.BODIES]
+
+
+def _probe_call(probe, body, device):
+    if probe is probe_cem_r3:
+        t = probe.inputs(body, device, seed=4)
+        return lambda out=None: probe.halo_sum(body, t, out=out)
+    a, w = probe.inputs(body, device, seed=4)
+    return lambda out=None: probe.lane_matmul(body, a, w, out=out)
+
+
+# Ten launches of each body give the first one's output bit for bit.
+@pytest.mark.parametrize("probe,body", _PROBE_CALLS)
+def test_probe_kernels_repeat_bit_for_bit(cuda, probe, body):
+    call = _probe_call(probe, body, cuda)
+    first = call()
+    for i in range(10):
+        diff = int((call() != first).sum())
+        assert diff == 0, f"launch {i + 1}: {diff} values differ"
+
+
+@pytest.mark.parametrize("probe,body", [_PROBE_CALLS[0], _PROBE_CALLS[-1]])
+def test_probe_kernels_write_out_in_place_and_check_it(cuda, probe, body):
+    call = _probe_call(probe, body, cuda)
+    want = call()
+    out = torch.full_like(want, float("nan"))
+    assert call(out) is out and torch.equal(out, want)
+    unaligned = torch.empty(want.numel() + 1, device=cuda)[1:].view(
+        want.shape)  # contiguous, 4 bytes past a 16-byte boundary
+    for bad in (out.double(), out.cpu(), unaligned, out[:1]):
+        with pytest.raises(ValueError, match="out must be"):
+            call(bad)
+
+
+def test_lane_matmul_kernel_runs_on_the_tensor_cores(cuda):
+    """P3's products are tensor-core instructions (HMMA or HGMMA in the
+    SASS that cuobjdump shows), and no kernel of the library spills."""
+    import shutil
+    import subprocess
+    probe_cem_fb.lane_matmul("slice8", *probe_cem_fb.inputs("slice8", cuda))
+    report = probe_cem_fb.kernels.ptxas_report("cem_probes")
+    assert report and all(r["spill_stores"] == r["spill_loads"] == 0
+                          for r in report), report
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("no cuobjdump in this CUDA toolkit")
+    sass = subprocess.run(
+        [tool, "-sass", str(probe_cem_fb.kernels._lib_path("cem_probes"))],
+        check=True, capture_output=True, text=True).stdout
+    bodies = [f for f in sass.split("Function : ")[1:]
+              if f.split(None, 1)[0].find("lane_matmul_kernel") >= 0]
+    assert len(bodies) == 3  # one instantiation per body
+    assert all("HMMA" in f or "HGMMA" in f for f in bodies)
+
+
+def test_launch_floor_and_stream_pointer(cuda):
+    from mmidet_tpu_torch.tools import timing
+    t = torch.zeros(1, device=cuda)
+    assert probe_cem_fb.kernels.stream_ptr(t) == torch.cuda.current_stream(
+        t.device).cuda_stream
+    side = torch.cuda.Stream(t.device)
+    with torch.cuda.stream(side):
+        assert probe_cem_fb.kernels.stream_ptr(t) == side.cuda_stream
+    floor = timing.launch_floor(t)
+    rec = timing.timed(floor, floor, None, 0, 0, 1, floor=floor)
+    assert len(rec["floor_ms_turns"]) == len(rec["floor_device_ms_turns"]) == 2
+    assert 0 < rec["floor_device_ms"] and 0 < rec["floor_ms"]

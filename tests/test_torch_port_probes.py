@@ -161,3 +161,141 @@ def test_cem_probe_entry_points_on_the_cpu():
         recs = mod.main(device="cpu")
         assert len(recs) == n and all(r["ok"] and r["max_abs_err"] == 0
                                       for r in recs)
+
+
+# The yardsticks beside P2 and P3: one PyTorch call per body against the
+# plain version, at the plain version's gates (P2 one bf16 step of max(1,
+# |want|), after the call's own bf16 rounding; P3 1e-5 of max |want|).
+@pytest.mark.parametrize("probe,body", [
+    *((probe_cem_r3, b) for b in probe_cem_r3.BODIES),
+    *((probe_cem_fb, b) for b in probe_cem_fb.BODIES)])
+def test_library_call_matches_plain(probe, body):
+    args = probe.inputs(body, "cpu", seed=5)
+    if probe is probe_cem_r3:
+        want = probe.halo_sum_reference(body, args)[..., 0].reshape(-1)
+        got = probe.library_call(body, args)().float().reshape(-1)
+        tol = 2.0 ** -8 * max(1.0, float(want.abs().max()))
+    else:
+        want = probe.lane_matmul_reference(body, *args)
+        got = probe.library_call(body, *args)()
+        tol = probe.TOL * float(want.abs().max())
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("body", probe_cem_fb.BODIES)
+def test_widen_index_is_widen(body):
+    """The index map the kernel stages a's rows by gives ``widen``'s rows:
+    column k reads lane widen_index[k] of a, or is zero where it is -1."""
+    a, _ = probe_cem_fb.inputs(body, "cpu", seed=6, m=5)
+    idx = probe_cem_fb.widen_index(body)
+    assert idx.shape == (probe_cem_fb.WIDTH[body][1],)
+    got = torch.where(idx >= 0, a[:, idx.clamp(min=0)], torch.zeros(
+        (), dtype=a.dtype))
+    assert torch.equal(got, probe_cem_fb.widen(body, a))
+    # slice192 and ones_matmul move whole 16-byte chunks (the kernel's
+    # Body<>::CHUNKED): 8 columns read 8 consecutive lanes from a multiple
+    # of 8, or none; slice8 does not
+    chunks = idx.view(-1, 8)
+    first = chunks[:, :1]
+    chunked = bool(((chunks == -1).all(1) | ((first[:, 0] % 8 == 0) & (
+        chunks == first + torch.arange(8)).all(1))).all())
+    assert chunked == (body != "slice8")
+
+
+@pytest.mark.parametrize("body,steps", [("slice192", 15), ("slice8", 1),
+                                        ("ones_matmul", 12)])
+def test_k16_tiled_products_mirror_matches_plain(body, steps):
+    """A CPU mirror of the kernel's products: 16 rows at a time (the last
+    tile ragged), k16 steps in order with f32 sums, the steps past the
+    last that holds a lane of a (all zero, the kernel's Body<>::STEPS)
+    skipped; within P3's gate of the plain version."""
+    held = (probe_cem_fb.widen_index(body) >= 0).view(-1, 16).any(1)
+    assert int(held.nonzero().max()) + 1 == steps
+    a, w = probe_cem_fb.inputs(body, "cpu", seed=7, m=37)
+    p = probe_cem_fb.widen(body, a).float()
+    acc = torch.zeros(len(a), 128)
+    for m0 in range(0, len(a), 16):
+        for s in range(steps):
+            k = slice(16 * s, 16 * s + 16)
+            acc[m0:m0 + 16] += p[m0:m0 + 16, k] @ w[k].float()
+    want = probe_cem_fb.lane_matmul_reference(body, a, w)
+    assert float((acc - want).abs().max()) <= probe_cem_fb.TOL * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("r,g", [(80, 80), (7, 33)])
+def test_lane_wrap_eight_threads_a_pixel_mirror_matches_plain(r, g):
+    """A CPU mirror of lane_wrap's reduction: thread j of a pixel's 8 sums
+    its 16-byte chunks j, j + 8, j + 16, weighted by
+    ``lane_wrap_weights`` (2 for chunks 0-2 and 21-23), then three xor
+    steps (j ^ 1, j ^ 2, j ^ 4) add the 8 partial sums; one bf16 rounding;
+    within one bf16 step of the plain version."""
+    weights = probe_cem_r3.lane_wrap_weights().view(3, 8, 8)
+    assert (weights == weights[..., :1]).all()  # one weight a chunk
+    assert weights[..., 0].tolist() == [[2, 2, 2, 1, 1, 1, 1, 1], [1] * 8,
+                                        [1, 1, 1, 1, 1, 2, 2, 2]]
+    y = probe_cem_r3.inputs("lane_wrap", "cpu", seed=8, r=r, g=g)
+    chunks = y.float().reshape(-1, 3, 8, 8).sum(-1)  # (pixel, i, j)
+    s = (chunks * weights[..., 0]).sum(1)            # (pixel, j)
+    j = torch.arange(8)
+    for step in (1, 2, 4):
+        s = s + s[:, j ^ step]
+    got = s[:, 0].to(torch.bfloat16).float()
+    want = probe_cem_r3.halo_sum_reference("lane_wrap", y, r, g)[..., 0]
+    assert (s == s[:, :1]).all()  # every thread holds the sum
+    assert float((got - want.reshape(-1)).abs().max()) <= 2.0 ** -8 * max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("probe", [probe_cem_r3, probe_cem_fb])
+def test_probe_wrappers_write_out_in_place_and_check_it(probe):
+    if probe is probe_cem_r3:
+        args = (probe.inputs("halo_roll", "cpu", seed=9, r=3, g=5),)
+        call = lambda out: probe.halo_sum("halo_roll", *args, 3, 5, out=out)
+        shape = (5, 5, 8)
+    else:
+        args = probe.inputs("slice8", "cpu", seed=9, m=7)
+        call = lambda out: probe.lane_matmul("slice8", *args, out=out)
+        shape = (7, 128)
+    out = torch.full(shape, float("nan"))
+    assert call(out) is out
+    assert torch.equal(out, call(None))
+    for bad in (torch.empty(shape[0] + 1, *shape[1:]),
+                torch.empty(shape, dtype=torch.float64),
+                torch.empty(*shape[:-1], 2 * shape[-1])[..., ::2]):
+        with pytest.raises(ValueError, match="out must be"):
+            call(bad)
+
+
+# The bound of a P2 or P3 body counts the values its function reads, no
+# more: the input values on which the plain version's output depends (a
+# nonzero gradient) are the ones ``work`` counts, and so are its sums.
+@pytest.mark.parametrize("probe,body", [
+    *((probe_cem_r3, b) for b in probe_cem_r3.BODIES),
+    *((probe_cem_fb, b) for b in probe_cem_fb.BODIES)])
+def test_bound_counts_what_the_function_reads(probe, body):
+    if probe is probe_cem_r3:
+        r, g = 3, 5
+        t = probe.inputs(body, "cpu", seed=10, r=r, g=g).float()
+        t.requires_grad_(True)
+        out = probe.halo_sum_reference(body, t, r, g)
+        out[..., 0].sum().backward()
+        values, sums = int((t.grad != 0).sum()), out[..., 0].numel()
+        taps = {"halo_concat": 10, "halo_roll": 10, "lane_wrap": 240,
+                "flat_gather": 9}[body]
+        assert probe.work(body, r, g) == (sums * (taps - 1),
+                                          values * 2 + out.numel() * 4)
+    else:
+        m = 5
+        a, w = (x.float().requires_grad_(True)
+                for x in probe.inputs(body, "cpu", seed=10, m=m))
+        out = probe.lane_matmul_reference(body, a, w)
+        out.sum().backward()
+        rows = int((w.grad != 0).any(1).sum())
+        assert bool((a.grad != 0).all())
+        assert rows == {"slice192": 240, "slice8": 10,
+                        "ones_matmul": 192}[body]
+        assert probe.work(body, m) == (2 * m * rows * 128,
+                                       a.numel() * 2 + rows * 128 * 2
+                                       + out.numel() * 4)

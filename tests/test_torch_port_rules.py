@@ -105,7 +105,7 @@ def test_every_kernel_is_registered_counted_and_has_a_plain_version():
                                        "layer_gemm_tile", "nms_greedy",
                                        "cem", "gpt_merge", "conv_chain",
                                        "conv_chain_config", "halo_sum",
-                                       "lane_matmul"}
+                                       "lane_matmul", "launch_floor"}
     assert kernels.LIBRARIES == ("cem", "cem_probes", "conv_chain",
                                  "gpt_merge", "nms_greedy",
                                  "token_transformer")
