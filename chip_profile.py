@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main paths spend their time on one NVIDIA card.
 
-    python3 chip_profile.py [p1]
+    python3 chip_profile.py [p1 | k2]
 
 Builds the same seeded deploy models as ``chip_smoke.py`` (BN folded, bf16,
 batch 16 at 640x640) and prints JSON lines:
@@ -15,6 +15,9 @@ batch 16 at 640x640) and prints JSON lines:
   * ``p1_phases``, only when ``p1`` is the only argument, and then
     alone: P1 at the probe's shapes as built and with parts of its
     consumers' work left out (``-DP1_SKIP=<mask>``);
+  * ``k2_phases``, only when ``k2`` is the only argument, and then alone:
+    K2's large form at B = 16, K = 30000 on four pools, as built and with
+    parts of its work left out (``-DNMS_SKIP=<mask>``);
   * ``memory_format``: yolov5s_gpt4's forward time in NCHW and in
     channels_last memory format, timed in turns (nchw, cl, cl, nchw) with
     CUDA events;
@@ -234,6 +237,81 @@ def p1_phases(torch, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# K2's large-pool form part by part: csrc/nms_greedy.cu built with
+# -DNMS_SKIP=<mask>, the parts its kernel leaves out (bit i: item i)
+_K2_PARTS = ("run sort", "rank merge", "workspace write", "scan",
+             "in-order check", "top sort")
+K2_VARIANTS = {"all": 0, **{f"no {n}": 1 << i for i, n in enumerate(_K2_PARTS)},
+               "none": (1 << len(_K2_PARTS)) - 1}
+K2_POOLS = ("unsorted", "few_survive", "topk_sorted", "few_survive_sorted")
+
+
+def k2_phases(torch, card: str) -> None:
+    """K2's large form at B = 16, K = 30000 (the evaluator's
+    ``pre_nms_topk``) on four pools of ``chip_smoke.py:k2_pools``: the
+    kernel's own count of its scan per image, caller's ms, device ms and
+    bound through the wrapper; then device ms of each build of
+    ``K2_VARIANTS`` (the kernel as built and with parts left out), timed
+    in turns (every variant, then again in reverse order)."""
+    import ctypes
+    import subprocess
+
+    from chip_smoke import (device_ms, k2_bound, k2_pools, nms_pool,
+                            time_ms)
+    from mmidet_tpu_torch import kernels
+    from mmidet_tpu_torch.ops import nms_cuda
+    kernels.BUILD.mkdir(exist_ok=True)
+    libs = {n: kernels.BUILD / f"libnms_greedy_skip{m}.so"
+            for n, m in K2_VARIANTS.items()}
+    builds = {n: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DNMS_SKIP={m}", "-o",
+         str(libs[n]), str(kernels.CSRC / "nms_greedy.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for n, m in K2_VARIANTS.items()}
+    for b in builds.values():
+        log = b.communicate()[0].decode()
+        if b.returncode:
+            raise RuntimeError(log)
+    fns = {}
+    for n in K2_VARIANTS:
+        fn = ctypes.CDLL(str(libs[n])).nms_greedy_forward
+        fn.argtypes = kernels.SIGNATURES["nms_greedy"][2]
+        fns[n] = fn
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    B, K, max_det, thr = 16, 30000, 300, 0.45
+    boxes, scores = nms_pool(torch, B, K, torch.Generator().manual_seed(2))
+    pools = k2_pools(torch, boxes.to(dev), scores.to(dev))
+    idx = torch.empty(B, max_det, dtype=torch.int32, device=dev)
+    valid = torch.empty(B, max_det, dtype=torch.bool, device=dev)
+    work = torch.empty(nms_cuda.workspace_bytes(B, K, max_det),
+                       dtype=torch.uint8, device=dev)
+    for name in K2_POOLS:
+        b, s = pools[name]
+        stats = torch.zeros(B, nms_cuda.STATS_COLUMNS, dtype=torch.int32,
+                            device=dev)
+        nms_cuda.nms_greedy(b, s, thr, max_det, stats=stats)
+        torch.cuda.synchronize()
+        bound_ms, bound_by = k2_bound(stats, B, K, max_det)
+        rec = {"pool": name, "stats_per_image": stats.tolist(),
+               "ms": time_ms(lambda: nms_cuda.nms_greedy(b, s, thr,
+                                                          max_det)),
+               "device_ms_wrapper": device_ms(lambda: nms_cuda.nms_greedy(
+                   b, s, thr, max_det)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        ms = {n: [] for n in K2_VARIANTS}
+        for n in [*K2_VARIANTS, *reversed(K2_VARIANTS)]:
+            def run(fn=fns[n]):
+                kernels.check("nms_greedy", fn(
+                    b.data_ptr(), s.data_ptr(), idx.data_ptr(),
+                    valid.data_ptr(), None, work.data_ptr(), B, K, max_det,
+                    thr, stream))
+            ms[n].append(device_ms(run, reps=10))
+        print(json.dumps({"phase": "k2_phases", "card": card,
+                          "batch": B, "pool_size": K, **rec,
+                          "device_ms": ms}), flush=True)
+
+
 def group_of(name: str, groups) -> str:
     low = name.lower()
     for group, keys in groups:
@@ -348,6 +426,9 @@ def main() -> int:
 
     if sys.argv[1:] == ["p1"]:
         p1_phases(torch, card)
+        return 0
+    if sys.argv[1:] == ["k2"]:
+        k2_phases(torch, card)
         return 0
     gemm_tiles(torch, card)
     k3_phases(torch, card)

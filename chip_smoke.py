@@ -17,11 +17,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   5. K2, greedy NMS, against its plain version (B = 16, K = 4096,
      max_det = 300): identical indices on the seeded unsorted pool, a
      tie-heavy one, one sorted as ``torch.topk`` hands it on, one of
-     duplicate boxes and one of which few boxes survive; the kernel's own
-     count of its chunk rounds per image, held against the sorted pool;
-     timed on the seeded pool and on the one of few survivors; then the
-     same five pools at K = 30000, the evaluator's ``pre_nms_topk``, which
-     K2's large-pool form (a cluster of eight blocks per image) takes;
+     duplicate boxes and one of which few boxes survive, unsorted and
+     sorted; the kernel's own count of its scan per image (dependent
+     steps, consumed, kept, valid, path), held against what greedy's
+     answer determines; timed on the seeded pool, the sorted one and both
+     of few survivors; then the same pools at K = 30000, the evaluator's
+     ``pre_nms_topk``, which K2's large-pool form (a cluster of eight
+     blocks per image) takes, each pool's paths as the kernel recorded
+     them;
   6. K3, the fused CEM, against its plain version at (16, 640, 640, 3) in
      bf16 and f32 and at an odd shape that crosses tile borders; library
      time: the port's unfused ``ContourEnhance`` (cuDNN; TF32 off for the
@@ -41,7 +44,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   10. ``eval_nms``: the evaluator's NMS (``pre_nms_topk=30000``,
      ``multi_label=True``, conf 0.001) on the flagship's bf16 predictions
      through K2's large-pool form, identical to the same function with
-     greedy's plain version;
+     greedy's plain version; every image's pool, ``torch.topk``'s output,
+     takes the large form's in-order path;
   11. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
@@ -290,11 +294,14 @@ def k2_pools(torch, boxes, scores):
     with scores on a 1/16 grid (many ties), sorted as ``torch.topk`` hands
     it on in the main path (``ops/nms.py``), every box twice (IoU 1), and
     large boxes near the image's centre, of which few survive, so that the
-    scan consumes every valid candidate."""
+    scan consumes every valid candidate, unsorted and sorted."""
     _, K = scores.shape
     valid = scores > -torch.inf
     ties = torch.where(valid, torch.floor(scores * 16) / 16, scores)
     top, order = torch.topk(scores, K, 1)
+
+    def in_order(b):
+        return b.gather(1, order[..., None].expand(-1, -1, 4))
     dup = boxes.clone()
     dup[:, K // 2:] = boxes[:, :K - K // 2]
     offset = torch.floor(boxes[..., :1] / 4096) * 4096  # the class offset
@@ -302,28 +309,80 @@ def k2_pools(torch, boxes, scores):
     big = torch.cat([xy, xy + 300 + (boxes[..., 2:] - boxes[..., :2]) / 4],
                     -1) + offset
     return {"unsorted": (boxes, scores), "tie_heavy": (boxes, ties),
-            "topk_sorted": (boxes.gather(1, order[..., None].expand(
-                -1, -1, 4)), top),
-            "duplicates": (dup, scores), "few_survive": (big, scores)}
+            "topk_sorted": (in_order(boxes), top),
+            "duplicates": (dup, scores), "few_survive": (big, scores),
+            "few_survive_sorted": (in_order(big), top)}
 
 
-def expected_scan(torch, scores, keep_idx, keep_valid, max_det: int,
-                  chunk: int = 64):
+def _suppressed(torch, cand, kept, iou_thres: float):
+    """Whether any box of ``kept`` (n, 4) suppresses each of ``cand``
+    (m, 4), in the plain version's IoU operations (``cand`` the pool
+    element, ``kept`` the selected box)."""
+    c, k = cand[:, None], kept[None]
+
+    def area(b):
+        return (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    xx1 = torch.maximum(c[..., 0], k[..., 0])
+    yy1 = torch.maximum(c[..., 1], k[..., 1])
+    xx2 = torch.minimum(c[..., 2], k[..., 2])
+    yy2 = torch.minimum(c[..., 3], k[..., 3])
+    inter = (xx2 - xx1).clamp(min=0) * (yy2 - yy1).clamp(min=0)
+    return (inter / (area(c) + area(k) - inter + 1e-9) > iou_thres).any(1)
+
+
+def expected_scan(torch, boxes, scores, keep_idx, keep_valid, max_det: int,
+                  iou_thres: float, window: int | None = None,
+                  chunk: int | None = None):
     """What K2's own count of its scan (``nms_greedy(stats=)``) must read,
-    per image, from greedy's result: the scan consumes the sorted pool up
-    to the max_det-th kept box, or every valid candidate when fewer are
-    kept, in ceil(consumed / chunk) rounds."""
-    key = torch.where(scores > -torch.inf, -scores, torch.inf)
+    per image, from greedy's result and the scan's rules (window and chunk
+    default to the kernel's):
+      * consumed: the ordered pool up to the max_det-th kept box, or every
+        valid candidate when fewer are kept;
+      * rounds: for each window of positions the scan reaches (those
+        before ``consumed``), one filter step plus ceil(s / chunk) walk
+        steps, s the window's candidates before ``consumed`` that no box
+        kept in an earlier window suppresses;
+      * kept and valid;
+      * path: 0 for K <= SMALL_POOL (the small form); else 1 when the pool
+        is in order (scores never rise, invalid slots last); else 2 when
+        the selection holds every valid candidate (n_valid <= TOP_CAP) or
+        the max_det-th kept box lies in the first TOP positions; else 3."""
+    from mmidet_tpu_torch.ops import nms_cuda as k2
+    window = window or k2.WINDOW
+    chunk = chunk or k2.CHUNK
+    B, K = scores.shape
+    valid = scores > -torch.inf
+    key = torch.where(valid, -scores, torch.inf)
     order = torch.sort(key, dim=1, stable=True).indices
     rank = torch.empty_like(order).scatter_(
-        1, order, torch.arange(order.shape[1], device=order.device).expand_as(
+        1, order, torch.arange(K, device=order.device).expand_as(
             order).contiguous())
     kept = keep_valid.sum(1)
-    n_valid = (scores > -torch.inf).sum(1)
+    n_valid = valid.sum(1)
     last = torch.where(keep_valid, rank.gather(1, keep_idx.long()), -1)
     consumed = torch.where(kept >= max_det, last.amax(1) + 1, n_valid)
-    rounds = torch.div(consumed + chunk - 1, chunk, rounding_mode="floor")
-    return torch.stack([rounds, consumed, kept, n_valid], 1).to(torch.int32)
+    in_order = (key[:, :-1] <= key[:, 1:]).all(1)
+    rows = []
+    for i in range(B):
+        c, nv, nk = int(consumed[i]), int(n_valid[i]), int(kept[i])
+        ordered = boxes[i][order[i, :c]]
+        kpos = rank[i][keep_idx[i][keep_valid[i]].long()]
+        rounds = 0
+        for wbase in range(0, c, window):
+            cand = ordered[wbase:wbase + window]
+            s = len(cand) - int(_suppressed(
+                torch, cand, ordered[kpos[kpos < wbase]], iou_thres).sum())
+            rounds += 1 + -(-s // chunk)
+        if K <= k2.SMALL_POOL:
+            path = k2.PATH_SMALL
+        elif in_order[i]:
+            path = k2.PATH_IN_ORDER
+        elif nv <= k2.TOP_CAP or (nk >= max_det and c <= k2.TOP):
+            path = k2.PATH_TOP
+        else:
+            path = k2.PATH_CLUSTER_SORT
+        rows.append([rounds, c, nk, nv, path])
+    return torch.tensor(rows, dtype=torch.int32, device=scores.device)
 
 
 def k2_bound(stats, B: int, K: int, max_det: int):
@@ -333,7 +392,7 @@ def k2_bound(stats, B: int, K: int, max_det: int):
     against one kept box, 14 f32 operations each) and a comparison sort of
     the valid candidates (n log2 n comparisons)."""
     ops = 0.0
-    for rounds, consumed, kept, n_valid in stats.tolist():
+    for _, consumed, kept, n_valid, *_ in stats.tolist():
         ops += 14 * (kept * (kept - 1) / 2 + consumed - kept)
         ops += n_valid * math.log2(max(n_valid, 2))
     return bound(ops, B * K * (16 + 4) + B * max_det * (4 + 1),
@@ -341,9 +400,9 @@ def k2_bound(stats, B: int, K: int, max_det: int):
 
 
 def phase_k2(torch, dev, K: int = 4096):
-    """K2 on the five pools of ``k2_pools`` at B = 16 and pool size K:
-    K = 4096 takes the small form, K = 30000 (the evaluator's
-    ``pre_nms_topk``) the large one."""
+    """K2 on the pools of ``k2_pools`` at B = 16 and pool size K: K = 4096
+    takes the small form, K = 30000 (the evaluator's ``pre_nms_topk``) the
+    large one; each pool's paths as the kernel recorded them."""
     from mmidet_tpu_torch.ops import nms_cuda
     B, max_det, thr = 16, 300, 0.45
     boxes, scores = nms_pool(torch, B, K, torch.Generator().manual_seed(2))
@@ -351,32 +410,37 @@ def phase_k2(torch, dev, K: int = 4096):
     checks, err, timed = [], 0, {}
     for name, (b, s) in k2_pools(torch, boxes, scores).items():
         ri, rv = nms_cuda.nms_greedy_reference(b, s, thr, max_det)
-        stats = torch.zeros(B, 4, dtype=torch.int32, device=dev)
+        stats = torch.zeros(B, nms_cuda.STATS_COLUMNS, dtype=torch.int32,
+                            device=dev)
         ki, kv = nms_cuda.nms_greedy(b, s, thr, max_det, stats=stats)
         torch.cuda.synchronize()
         rounds = stats[:, 0].tolist()
+        paths = stats[:, 4].tolist()
         checks.append({
             "pool": name,
             "identical": bool(torch.equal(ri, ki) and torch.equal(rv, kv)),
             "scan_as_expected": bool(torch.equal(
-                stats, expected_scan(torch, s, ri, rv, max_det))),
+                stats, expected_scan(torch, b, s, ri, rv, max_det, thr))),
             "kept": int(kv.sum()), "max_rounds": max(rounds),
             "mean_rounds": sum(rounds) / len(rounds),
-            "mean_consumed": stats[:, 1].float().mean().item()})
+            "mean_consumed": stats[:, 1].float().mean().item(),
+            "paths": {p: paths.count(p) for p in sorted(set(paths))}})
         err = max(err, int((ki - ri).abs().max()))
-        if name in ("unsorted", "few_survive"):
+        if name in ("unsorted", "few_survive", "topk_sorted",
+                    "few_survive_sorted"):
             bound_ms, bound_by = k2_bound(stats, B, K, max_det)
             timed[name] = {
-                "kept": int(kv.sum()),
+                "kept": int(kv.sum()), "mean_rounds": sum(rounds) / B,
+                "paths": checks[-1]["paths"],
                 "ms": time_ms(lambda: nms_cuda.nms_greedy(b, s, thr,
                                                           max_det)),
                 "device_ms": device_ms(lambda: nms_cuda.nms_greedy(
                     b, s, thr, max_det)),
                 "bound_ms": bound_ms, "bound_by": bound_by}
-    rec = {"pool": K, "max_abs_err": err, **timed["unsorted"],
+    rec = {"pool": K, "max_abs_err": err, **timed.pop("unsorted"),
            "identical": all(c["identical"] for c in checks),
            "scan_as_expected": all(c["scan_as_expected"] for c in checks),
-           "checks": checks, "few_survive": timed["few_survive"],
+           "checks": checks, **timed,
            "plain_ms": time_ms(lambda: nms_cuda.nms_greedy_reference(
                boxes, scores, thr, max_det), reps=3 if K > 4096 else 20,
                warmup=1),
@@ -387,7 +451,7 @@ def phase_k2(torch, dev, K: int = 4096):
                              f"version: {checks}")
     if not rec["scan_as_expected"]:
         raise AssertionError(f"K2's count of its scan differs from the "
-                             f"sorted pool's: {checks}")
+                             f"ordered pool's: {checks}")
     return rec
 
 
@@ -809,17 +873,28 @@ def phase_eval_nms(torch, pred):
     """The evaluator's NMS (``pre_nms_topk=30000, multi_label=True`` at conf
     0.001, ``mmidet_tpu/eval/evaluator.py:56-63``) on the flagship's bf16
     predictions at batch 16: through K2's large-pool form (launch counted
-    from 0), then the same function with greedy's plain version in K2's
-    place on the same pool; the two must be identical."""
+    from 0, each image's path recorded), then the same function with
+    greedy's plain version in K2's place on the same pool; the two must be
+    identical, and every image must take the in-order path."""
     from unittest import mock
 
     from mmidet_tpu_torch.ops import nms as nms_mod
     from mmidet_tpu_torch.ops import nms_cuda
     kw = {"conf_thres": 0.001, "iou_thres": 0.45, "multi_label": True,
           "pre_nms_topk": 30000}
+    paths = []
+
+    def counted(boxes, scores, iou_thres, max_det):  # K2 with its stats
+        stats = torch.zeros(boxes.shape[0], nms_cuda.STATS_COLUMNS,
+                            dtype=torch.int32, device=boxes.device)
+        out = nms_cuda.nms_greedy(boxes, scores, iou_thres, max_det,
+                                  stats=stats)
+        paths.extend(stats[:, 4].tolist())
+        return out
     with torch.inference_mode():
         zero_counts()
-        dets, valid = nms_mod.non_max_suppression(pred, **kw)
+        with mock.patch.object(nms_mod, "nms_greedy", counted):
+            dets, valid = nms_mod.non_max_suppression(pred, **kw)
         torch.cuda.synchronize()
         launches = read_counts(nms_greedy=1, nms_greedy_large=1)
         with mock.patch.object(nms_mod, "nms_greedy",
@@ -835,6 +910,7 @@ def phase_eval_nms(torch, pred):
                "identical": bool(torch.equal(valid, p_valid)
                                  and torch.equal(dets, p_dets)),
                "kept_per_image": float(valid.sum(1).float().mean()),
+               "paths": {p: paths.count(p) for p in sorted(set(paths))},
                "finite": bool(torch.isfinite(dets).all()),
                "ms": time_ms(lambda: nms_mod.non_max_suppression(pred, **kw),
                              reps=10, warmup=1),
@@ -845,6 +921,9 @@ def phase_eval_nms(torch, pred):
                              f"its plain path: {rec}")
     if rec["min_pairs_above_conf"] <= 4096:
         raise AssertionError(f"the pool never passed 4096: {rec}")
+    if paths != [nms_cuda.PATH_IN_ORDER] * pred.shape[0]:
+        raise AssertionError(f"the evaluator's pool, torch.topk's output, "
+                             f"did not take K2's in-order path: {rec}")
     return launches
 
 

@@ -20,8 +20,17 @@ import torch
 
 from mmidet_tpu_torch import kernels
 
+# the kernel's constants (csrc/nms_greedy.cu)
 SMALL_POOL = 4096  # the whole pool sorts in one block's shared memory
-MAX_POOL = 30000  # eight blocks' runs of SMALL_POOL, merged
+MAX_POOL = 30000  # eight blocks' runs of SMALL_POOL
+WINDOW = 1024  # positions a scan window filters, one a thread
+CHUNK = 64  # survivors a walk step takes
+TOP = 1024  # positions the large form scans from its selection
+TOP_CAP = 2048  # most keys the selection holds
+KEPT_SHARED = 1024  # large form: most kept boxes in shared memory
+STATS_COLUMNS = 5  # rounds, consumed, kept, valid, path
+# stats' path column
+PATH_SMALL, PATH_IN_ORDER, PATH_TOP, PATH_CLUSTER_SORT = range(4)
 
 
 def nms_greedy_reference(boxes: torch.Tensor, scores: torch.Tensor,
@@ -55,14 +64,16 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
                stats: torch.Tensor | None = None):
     """Batched greedy NMS.  On a CUDA tensor this launches the kernel (one
     launch: per image one block, or for K > ``SMALL_POOL`` a cluster of
-    eight, sorts and scans); on a CPU tensor it runs the plain version.
+    eight, orders and scans); on a CPU tensor it runs the plain version.
     Scores are finite or -inf.  ``launches`` counts every launch,
     ``launches_large`` those of the large-pool form.
 
-    ``stats``, a (B, 4) int32 tensor on the boxes' device, takes the
-    kernel's own count of its scan per image: the dependent rounds, the
-    sorted candidates they consumed, the boxes kept and the valid
-    candidates.  Only the kernel fills it."""
+    ``stats``, a (B, 5) int32 tensor on the boxes' device, takes the
+    kernel's own count of its scan per image: the dependent rounds
+    (windows plus walk steps), the ordered candidates they consumed, the
+    boxes kept, the valid candidates and the path the image took
+    (``PATH_SMALL``, ``PATH_IN_ORDER``, ``PATH_TOP``,
+    ``PATH_CLUSTER_SORT``).  Only the kernel fills it."""
     if boxes.device.type == "cpu":
         if stats is not None:
             raise ValueError("stats count the kernel's scan; the plain "
@@ -76,20 +87,21 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
         raise ValueError(f"kernel takes boxes (B, K, 4) and scores (B, K) "
                          f"with K <= {MAX_POOL}; got {tuple(boxes.shape)}, "
                          f"{tuple(scores.shape)}")
-    if stats is not None and (stats.shape != (b, 4) or stats.dtype !=
-                              torch.int32 or stats.device != boxes.device
+    if stats is not None and (stats.shape != (b, STATS_COLUMNS)
+                              or stats.dtype != torch.int32
+                              or stats.device != boxes.device
                               or not stats.is_contiguous()):
-        raise ValueError(f"stats must be a contiguous ({b}, 4) int32 tensor "
-                         f"on {boxes.device}")
-    boxes = boxes.to(torch.float32).contiguous()
+        raise ValueError(f"stats must be a contiguous ({b}, {STATS_COLUMNS}) "
+                         f"int32 tensor on {boxes.device}")
+    boxes = kernels.aligned(boxes.to(torch.float32))
     scores = scores.to(torch.float32).contiguous()
     keep_idx = torch.empty((b, max_det), dtype=torch.int32,
                            device=boxes.device)
     keep_valid = torch.empty((b, max_det), dtype=torch.bool,
                              device=boxes.device)
-    # the large form's sorted pools: box, area and index, 24 bytes a slot
-    workspace = (torch.empty(b * k * 6, dtype=torch.float32,
-                             device=boxes.device) if k > SMALL_POOL else None)
+    nbytes = workspace_bytes(b, k, max_det)
+    workspace = (torch.empty(nbytes, dtype=torch.uint8, device=boxes.device)
+                 if nbytes else None)
     fn = kernels.load("nms_greedy")
     err = fn(boxes.data_ptr(), scores.data_ptr(), keep_idx.data_ptr(),
              keep_valid.data_ptr(),
@@ -100,6 +112,18 @@ def nms_greedy(boxes: torch.Tensor, scores: torch.Tensor,
     nms_greedy.launches += 1
     nms_greedy.launches_large += k > SMALL_POOL
     return keep_idx, keep_valid
+
+
+def workspace_bytes(b: int, k: int, max_det: int) -> int:
+    """What the large form's workspace holds: the ordered pools' boxes (16
+    bytes a slot) and indices (4, rounded up to 16 bytes a batch) and, for
+    more than ``KEPT_SHARED`` kept boxes, those boxes and their areas (20
+    bytes each).  The small form takes none."""
+    if k <= SMALL_POOL:
+        return 0
+    n, kept = b * k, min(max_det, k)
+    spill = b * kept * 20 if kept > KEPT_SHARED else 0
+    return n * 16 + -(-n * 4 // 16) * 16 + spill
 
 
 nms_greedy.launches = 0

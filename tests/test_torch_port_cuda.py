@@ -216,11 +216,12 @@ def _expected_scan():
     return _chip_smoke().expected_scan
 
 
-# The kernel sorts each pool, then scans it in chunks of 64: ties, pools
-# handed on sorted, duplicate boxes, pools of which few boxes survive, pools
-# of one slot and at either side of a chunk, and max_det = 1 must all give
-# greedy's indices exactly, and the kernel's count of its scan (rounds,
-# consumed, kept, valid) must be the one greedy's answer determines.
+# The kernel sorts each pool, then scans it in windows of 1024 and chunks of
+# 64: ties, pools handed on sorted, duplicate boxes, pools of which few
+# boxes survive, pools of one slot and at either side of a chunk, and
+# max_det = 1 must all give greedy's indices exactly, and the kernel's count
+# of its scan (rounds, consumed, kept, valid, path) must be the one greedy's
+# answer determines.
 @pytest.mark.parametrize("kind,k,max_det", [
     ("tie_heavy", 4096, 300), ("tie_heavy", 700, 1000), ("sorted", 4096, 300),
     ("duplicates", 4096, 300), ("duplicates", 130, 200),
@@ -234,13 +235,14 @@ def test_nms_kernel_special_pools_match_plain(cuda, kind, k, max_det):
     b = torch.cat([p[0] for p in pools]).to(cuda)
     s = torch.cat([p[1] for p in pools]).to(cuda)
     before = nms_cuda.nms_greedy.launches
-    stats = torch.full((3, 4), -1, dtype=torch.int32, device=cuda)
+    stats = torch.full((3, 5), -1, dtype=torch.int32, device=cuda)
     got = nms_cuda.nms_greedy(b, s, 0.45, max_det, stats=stats)
     want = nms_cuda.nms_greedy_reference(b, s, 0.45, max_det)
     assert nms_cuda.nms_greedy.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert torch.equal(stats, _expected_scan()(torch, s, *want, max_det))
+    assert torch.equal(stats, _expected_scan()(torch, b, s, *want, max_det,
+                                               0.45))
     if kind == "few_survive":  # the scan walks every valid candidate
         assert (want[1].sum(1) < max_det).all()
         assert torch.equal(stats[:, 1], stats[:, 3])
@@ -252,11 +254,11 @@ def test_nms_kernel_rejects_large_pools(cuda):
                             torch.zeros(1, 30001, device=cuda))
 
 
-# The large-pool form (K > 4096: a cluster of eight blocks per image, each
-# sorting a run of 4096, merged by rank) on chip_smoke.py's pools at the
-# evaluator's pre_nms_topk, 30000, and at pool sizes that leave runs
-# partly or wholly padding: greedy's indices exactly, and the kernel's count
-# of its scan as greedy's answer determines it.
+# The large-pool form (K > 4096: a cluster of eight blocks per image) on
+# chip_smoke.py's pools at the evaluator's pre_nms_topk, 30000, and at pool
+# sizes that leave runs partly or wholly padding: greedy's indices exactly,
+# and the kernel's count of its scan, its path included, as greedy's answer
+# determines it.
 @pytest.mark.parametrize("pool,k", [
     ("unsorted", 30000), ("tie_heavy", 30000), ("topk_sorted", 30000),
     ("duplicates", 30000), ("few_survive", 30000), ("unsorted", 4097),
@@ -267,24 +269,77 @@ def test_nms_kernel_large_pools_match_plain(cuda, pool, k):
                                    torch.Generator().manual_seed(k))
     b, s = smoke.k2_pools(torch, boxes.to(cuda), scores.to(cuda))[pool]
     before = nms_cuda.nms_greedy.launches_large
-    stats = torch.full((2, 4), -1, dtype=torch.int32, device=cuda)
+    stats = torch.full((2, 5), -1, dtype=torch.int32, device=cuda)
     got = nms_cuda.nms_greedy(b, s, 0.45, 300, stats=stats)
     want = nms_cuda.nms_greedy_reference(b, s, 0.45, 300)
     torch.cuda.synchronize()
     assert nms_cuda.nms_greedy.launches_large == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert torch.equal(stats, smoke.expected_scan(torch, s, *want, 300))
+    assert torch.equal(stats, smoke.expected_scan(torch, b, s, *want, 300,
+                                                  0.45))
     if pool == "few_survive":  # the scan walks every valid candidate
         assert torch.equal(stats[:, 1], stats[:, 3])
-        assert (stats[:, 0] > 64).all()
+        assert (stats[:, 0] > stats[:, 3] // nms_cuda.WINDOW).all()
+
+
+# Each path of the large form: pools in order as torch.topk hands them on
+# (path 1) at 4097, 12289 and 30000 slots, of which few survive too; an
+# unsorted pool whose selection the scan does not use up (path 2); an
+# unsorted pool of few survivors, whose selection it uses up, so that the
+# cluster sorts the whole pool and the scan goes on from there (path 3);
+# and scores all equal, where only the index digits separate the keys.
+@pytest.mark.parametrize("pool,k,path", [
+    ("topk_sorted", 4097, 1), ("topk_sorted", 12289, 1),
+    ("topk_sorted", 30000, 1), ("few_survive_sorted", 30000, 1),
+    ("unsorted", 30000, 2), ("few_survive", 30000, 3),
+    ("all_equal", 30000, 2), ("all_equal_in_order", 30000, 1)])
+def test_nms_kernel_large_pool_paths(cuda, pool, k, path):
+    smoke = _chip_smoke()
+    boxes, scores = smoke.nms_pool(torch, 2, k,
+                                   torch.Generator().manual_seed(k + path))
+    if pool.startswith("all_equal"):
+        b, s = boxes, torch.where(scores > -torch.inf, 0.5, scores)
+        if pool == "all_equal_in_order":
+            s = torch.full_like(scores, 0.5)
+    else:
+        b, s = smoke.k2_pools(torch, boxes, scores)[pool]
+    b, s = b.to(cuda), s.to(cuda)
+    stats = torch.full((2, 5), -1, dtype=torch.int32, device=cuda)
+    got = nms_cuda.nms_greedy(b, s, 0.45, 300, stats=stats)
+    want = nms_cuda.nms_greedy_reference(b, s, 0.45, 300)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(stats, smoke.expected_scan(torch, b, s, *want, 300,
+                                                  0.45))
+    assert (stats[:, 4] == path).all()
+
+
+@pytest.mark.parametrize("max_det", [1024, 1025, 3000])
+def test_nms_kernel_large_pool_many_kept(cuda, max_det):
+    """More kept boxes than the large form holds in shared memory (1024)
+    go to its workspace; the scan then filters windows against up to
+    max_det kept boxes and goes past the selection (path 3)."""
+    smoke = _chip_smoke()
+    boxes, scores = smoke.nms_pool(torch, 2, 12289,
+                                   torch.Generator().manual_seed(max_det))
+    b, s = boxes.to(cuda), scores.to(cuda)
+    stats = torch.full((2, 5), -1, dtype=torch.int32, device=cuda)
+    got = nms_cuda.nms_greedy(b, s, 0.45, max_det, stats=stats)
+    want = nms_cuda.nms_greedy_reference(b, s, 0.45, max_det)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(stats, smoke.expected_scan(torch, b, s, *want,
+                                                  max_det, 0.45))
+    assert (stats[:, 2] > 1000).all()
+    assert (stats[:, 4] == nms_cuda.PATH_CLUSTER_SORT).all()
 
 
 def test_nms_kernel_rejects_bad_stats(cuda):
     b, s = torch.zeros(2, 64, 4, device=cuda), torch.zeros(2, 64, device=cuda)
-    for bad in (torch.zeros(2, 4, dtype=torch.int64, device=cuda),
-                torch.zeros(2, 3, dtype=torch.int32, device=cuda),
-                torch.zeros(2, 4, dtype=torch.int32)):
+    for bad in (torch.zeros(2, 5, dtype=torch.int64, device=cuda),
+                torch.zeros(2, 4, dtype=torch.int32, device=cuda),
+                torch.zeros(2, 5, dtype=torch.int32)):
         with pytest.raises(ValueError, match="stats must be"):
             nms_cuda.nms_greedy(b, s, stats=bad)
 

@@ -8,6 +8,7 @@ px)."""
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -105,12 +106,14 @@ def test_greedy_wrapper_stats_come_from_the_kernel_only():
 
 
 # --- the algorithm of csrc/nms_greedy.cu, rehearsed on the CPU -------------
-# The kernel sorts each image's pool by (score descending, index ascending)
-# and walks it in chunks: per chunk it drops the candidates that a box kept
-# in an earlier chunk suppresses, then scans the rest in order, each kept
-# box clearing the later candidates it suppresses.  This mirror (sort, then
-# a chunked scan with the chunk size as a parameter) must give greedy's
-# indices exactly, ties included.
+# The kernel orders each image's pool by (score descending, index ascending)
+# and keeps, in that order, every candidate that no earlier kept box
+# suppresses.  Two mirrors must give greedy's indices exactly, ties
+# included: a chunked scan (per chunk: drop what boxes kept in earlier
+# chunks suppress, then scan the rest in order, each kept box clearing the
+# later candidates it suppresses), and the kernel's windowed scan (per
+# window: drop what boxes kept before the window suppress, compact the
+# survivors in order, walk them in chunks as above).
 
 def _iou(b, ab, j, aj):
     """IoU of pool boxes ``b`` against selected boxes ``j``, in the
@@ -162,6 +165,60 @@ def _sorted_chunked_scan(boxes, scores, iou_thres, max_det, chunk):
     idx[:len(kept)] = order[kept].to(torch.int32)
     val[:len(kept)] = True
     return idx, val, (rounds, consumed, len(kept), n_valid)
+
+
+def _windowed_scan(boxes, scores, iou_thres, max_det, window, chunk):
+    """One image, as the kernel's ``scan``: boxes (K, 4), scores (K,) ->
+    (keep_idx, keep_valid, count), count as the kernel's ``stats`` row of
+    the small form: (rounds, consumed, kept, n_valid, path 0), rounds the
+    windows plus the walk's chunks.  The walk takes, as the kernel's does,
+    only the live candidates that suppress a later live one."""
+    valid = scores > -torch.inf
+    key = torch.where(valid, -scores, torch.inf)
+    order = torch.sort(key, stable=True).indices
+    n_valid = int(valid.sum())
+    sb = boxes[order[:n_valid]]
+    sa = (sb[:, 2] - sb[:, 0]) * (sb[:, 3] - sb[:, 1])
+
+    def suppressed(cand, by):  # any box at positions ``by`` suppresses
+        if not by:
+            return torch.zeros(len(cand), dtype=torch.bool)
+        return (_iou(sb[cand][:, None], sa[cand][:, None], sb[by][None],
+                     sa[by][None]) > iou_thres).any(1)
+    kept = []                                          # ordered positions
+    rounds = consumed = 0
+    for wbase in range(0, n_valid, window):
+        if len(kept) >= max_det:
+            break
+        rounds += 1
+        pos = torch.arange(wbase, min(wbase + window, n_valid))
+        surv = pos[~suppressed(pos, kept)]             # compacted in order
+        first = len(kept)
+        for cb in range(0, len(surv), chunk):
+            if len(kept) >= max_det:
+                break
+            rounds += 1
+            cp = surv[cb:cb + chunk]
+            live = ~suppressed(cp, kept[first:])       # kept in this window
+            rows = (_iou(sb[cp][None], sa[cp][None], sb[cp][:, None],
+                         sa[cp][:, None]) > iou_thres) & torch.ones(
+                len(cp), len(cp), dtype=torch.bool).triu(1)
+            # only live candidates that suppress a later live one are
+            # walked; the others are kept and clear nothing
+            for a in torch.nonzero(live & (rows & live).any(1))[:, 0]:
+                if live[a]:
+                    live &= ~rows[a]
+            new = cp[live][:max_det - len(kept)].tolist()
+            kept += new
+            if len(kept) == max_det:
+                consumed = new[-1] + 1
+        if len(kept) < max_det:
+            consumed = int(pos[-1]) + 1
+    idx = torch.zeros(max_det, dtype=torch.int32)
+    val = torch.zeros(max_det, dtype=torch.bool)
+    idx[:len(kept)] = order[kept].to(torch.int32)
+    val[:len(kept)] = True
+    return idx, val, (rounds, consumed, len(kept), n_valid, 0)
 
 
 def _scan_pool(name):
@@ -237,23 +294,43 @@ def _chip_smoke():
     return mod
 
 
+@pytest.mark.parametrize("window", [8, 64, 1024])
+@pytest.mark.parametrize("name", _SCAN_POOLS)
+def test_windowed_scan_is_greedy(name, window):
+    iou = 0.45
+    boxes, scores, max_det, (ri, rv), jax_out = _greedy_answers(name, iou)
+    for i in range(len(boxes)):
+        ki, kv, _ = _windowed_scan(torch.from_numpy(boxes[i]),
+                                   torch.from_numpy(scores[i]), iou, max_det,
+                                   window, min(window, 64))
+        assert torch.equal(ki, ri[i]) and torch.equal(kv, rv[i])
+        np.testing.assert_array_equal(ki.numpy(), np.asarray(jax_out[i][0]))
+        np.testing.assert_array_equal(kv.numpy(), np.asarray(jax_out[i][1]))
+
+
 @pytest.mark.parametrize("chunk", [8, 64])
 @pytest.mark.parametrize("name", _SCAN_POOLS)
 def test_scan_count_follows_from_greedy(name, chunk):
-    """The scan's count (the kernel's ``stats``, here the mirror's) is what
-    ``chip_smoke.py:expected_scan`` reads off greedy's answer: the sorted
+    """The scan's count (the kernel's ``stats``, here the windowed mirror's,
+    in windows of 8 chunks and of the kernel's 1024) is what
+    ``chip_smoke.py:expected_scan`` reads off greedy's answer: the ordered
     pool consumed up to the max_det-th kept box, or all of its valid
-    candidates when fewer are kept, in ceil(consumed / chunk) rounds."""
+    candidates when fewer are kept; per window reached, one filter step
+    plus a walk step a chunk of survivors; path 0, the small form."""
+    window = {8: 64, 64: 1024}[chunk]
     boxes, scores, max_det, (ri, rv), _ = _greedy_answers(name, 0.45)
-    want = _chip_smoke().expected_scan(torch, torch.from_numpy(scores), ri,
-                                       rv, max_det, chunk)
-    got = torch.tensor([_sorted_chunked_scan(
+    want = _chip_smoke().expected_scan(
+        torch, torch.from_numpy(boxes), torch.from_numpy(scores), ri, rv,
+        max_det, 0.45, window, chunk)
+    got = torch.tensor([_windowed_scan(
         torch.from_numpy(boxes[i]), torch.from_numpy(scores[i]), 0.45,
-        max_det, chunk)[2] for i in range(len(boxes))], dtype=torch.int32)
+        max_det, window, chunk)[2] for i in range(len(boxes))],
+        dtype=torch.int32)
     assert torch.equal(got, want)
     n_valid = got[:, 3]
     short = got[:, 2] < max_det  # fewer kept than max_det: all consumed
     assert torch.equal(got[short, 1], n_valid[short])
+    assert (got[:, 4] == nms_cuda.PATH_SMALL).all()
 
 
 def test_non_max_suppression_evaluator_pool_matches_jax():
@@ -280,12 +357,15 @@ def test_non_max_suppression_evaluator_pool_matches_jax():
                                rtol=0)
 
 
-# --- the large-pool form's sort, rehearsed on the CPU ----------------------
-# For pools of 4096 < K <= 30000 the kernel sorts each run of 4096 slots in
-# one block of a cluster of eight and places each valid key at its position
-# in its run plus, for each other run, the number of that run's keys below
-# it (a branchless binary search).  The scan then reads the pool in that
-# order: it must be the order of one stable sort by descending score.
+# --- the large-pool form, rehearsed on the CPU ------------------------------
+# For pools of 4096 < K <= 30000 the kernel takes one of three paths to the
+# ordered pool.  (1) A pool in order is scanned as it is.  (2) Otherwise a
+# cluster of eight blocks selects the first keys of the order by radix
+# histograms and scans those.  (3) Where the scan uses them up, each block
+# sorts its run of 4096 slots and places each valid key at its position in
+# its run plus, for each other run, the number of that run's keys below it
+# (a branchless binary search).  Each must agree with one stable sort by
+# descending score.
 
 def _descending(s):
     """csrc/nms_greedy.cu:descending: 32 bits that ascend as s descends."""
@@ -336,3 +416,148 @@ def test_cluster_sort_is_one_stable_sort(kind, k):
     key = torch.where(t > -torch.inf, -t, torch.inf)
     want = torch.sort(key, stable=True).indices[:int((t > -torch.inf).sum())]
     np.testing.assert_array_equal(_cluster_order(scores), want.numpy())
+
+
+def _keys(scores, cluster_slots=4096 * 8):
+    """csrc/nms_greedy.cu:load_keys over the whole cluster: (descending
+    score bits, invalid largest) << 32 | slot, padding all ones."""
+    valid = scores > -np.inf
+    hi = np.where(valid, _descending(np.where(valid, scores, 0)),
+                  np.uint32(0xffffffff)).astype(np.uint64)
+    key = np.full(cluster_slots, np.uint64(0xffffffffffffffff))
+    key[:len(scores)] = (hi << np.uint64(32)) | np.arange(len(scores),
+                                                         dtype=np.uint64)
+    return key
+
+
+def _in_order(scores):
+    """The kernel's in-order check: every slot's score bits (invalid, -inf
+    or NaN, the largest) at most the next slot's."""
+    hi = _keys(scores, len(scores)) >> np.uint64(32)
+    return bool(np.all(hi[:-1] <= hi[1:]))
+
+
+def _order_case(name):
+    rng = np.random.default_rng(len(name))
+    s = np.floor(rng.random(5000) * 16).astype(np.float32) / 16  # ties
+    s[rng.random(5000) < 0.2] = -np.inf
+    top = torch.topk(torch.from_numpy(s), 5000).values.numpy()
+    if name == "topk_ties":
+        return top
+    if name == "signed_zeros":  # -0 ties +0 whatever their order
+        return np.float32([0.5, 0.0, -0.0, 0.0, -0.0, -0.25, -np.inf])
+    if name == "neg_inf_tail":
+        return np.concatenate([top[top > -np.inf],
+                               np.full(3000, -np.inf, np.float32)])
+    if name == "valid_after_invalid":
+        out = top.copy()
+        out[-1] = 0.0
+        return out
+    if name == "nan_invalid_tail":  # NaN counts as invalid, like -inf
+        out = top.copy()
+        out[-2] = np.nan
+        return out
+    if name == "nan_inside":
+        out = top.copy()
+        out[10] = np.nan
+        return out
+    out = top.copy()  # two valid slots swapped
+    out[[20, 21]] = out[[21, 20]] if out[20] != out[21] else [0.1, 0.2]
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "topk_ties", "signed_zeros", "neg_inf_tail", "valid_after_invalid",
+    "nan_invalid_tail", "nan_inside", "swapped"])
+def test_in_order_check_is_identity_sort(name):
+    """The check is true exactly when the stable sort of the valid keys is
+    the identity and every valid slot precedes every invalid one."""
+    scores = _order_case(name)
+    t = torch.from_numpy(scores)
+    valid = t > -torch.inf
+    nv = int(valid.sum())
+    key = torch.where(valid, -t, torch.inf)
+    want = bool(valid[:nv].all()) and torch.equal(
+        torch.sort(key[:nv], stable=True).indices, torch.arange(nv))
+    assert _in_order(scores) == want
+    assert want == (name in ("topk_ties", "signed_zeros", "neg_inf_tail",
+                             "nan_invalid_tail"))
+
+
+_DIGIT_SHIFTS = (56, 48, 40, 32, 8, 0)  # slots < 2^16: bits 16-31 are 0
+
+
+def _select_top(key, top, cap):
+    """The kernel's selection: with more than ``cap`` valid keys, radix
+    histograms (summed over the cluster's blocks) over 8-bit digits from
+    the top, refined until the bucket where the count reaches ``top``
+    fits under ``cap``; then every key up to that bucket.  Else every
+    valid key.  Returns the selected keys in order."""
+    invalid = np.uint64(0xffffffff) << np.uint64(32)
+    if int((key < invalid).sum()) <= cap:
+        return np.sort(key[key < invalid])
+    prefix = fixed = np.uint64(0)
+    below = 0
+    for shift in map(np.uint64, _DIGIT_SHIFTS):
+        match = key[(key & fixed) == prefix]
+        hist = np.bincount(((match >> shift) & np.uint64(255)).astype(
+            np.int64), minlength=256)
+        incl = np.cumsum(hist)
+        d = int(np.argmax(below + incl >= top))
+        if below + incl[d] <= cap:
+            thr = prefix | (np.uint64(d) << shift) | (
+                (np.uint64(1) << shift) - np.uint64(1))
+            break
+        below += int(incl[d] - hist[d])
+        prefix |= np.uint64(d) << shift
+        fixed |= np.uint64(255) << shift
+    return np.sort(key[key <= thr])
+
+
+@pytest.mark.parametrize("share", [0.9, 0.02], ids=["T_below_valid",
+                                                    "T_above_valid"])
+@pytest.mark.parametrize("k", [4097, 12289, 30000])
+@pytest.mark.parametrize("kind", ["distinct", "tie_heavy", "signed_zeros",
+                                  "all_equal"])
+def test_top_selection_is_first_of_stable_sort(kind, k, share):
+    rng = np.random.default_rng(k + int(share * 100))
+    scores = (rng.permutation(k) + 1).astype(np.float32) / (k + 1)
+    if kind == "tie_heavy":
+        scores = np.floor(scores * 16) / 16
+    elif kind == "signed_zeros":
+        scores = rng.choice(np.float32([-0.0, 0.0, 0.5, -0.25]), k)
+    elif kind == "all_equal":  # score digits separate nothing: the index's
+        scores = np.full(k, 0.5, np.float32)
+    scores[rng.random(k) >= share] = -np.inf
+    sel = _select_top(_keys(scores), nms_cuda.TOP, nms_cuda.TOP_CAP)
+    t = torch.from_numpy(scores)
+    n_valid = int((t > -torch.inf).sum())
+    if n_valid > nms_cuda.TOP_CAP:
+        assert nms_cuda.TOP <= len(sel) <= nms_cuda.TOP_CAP
+    else:
+        assert len(sel) == n_valid
+    key = torch.where(t > -torch.inf, -t, torch.inf)
+    want = torch.sort(key, stable=True).indices[:len(sel)]
+    np.testing.assert_array_equal((sel & np.uint64(0xffffffff)).astype(
+        np.int64), want.numpy())
+
+
+def test_wrapper_constants_are_the_kernels():
+    """``nms_cuda``'s constants, which ``expected_scan`` and the mirrors
+    use, are those of ``csrc/nms_greedy.cu``."""
+    src = (Path(nms_cuda.__file__).resolve().parents[1] / "csrc"
+           / "nms_greedy.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kThreads") == nms_cuda.WINDOW
+    assert const("kChunk") == nms_cuda.CHUNK
+    assert const("kMaxPool") == nms_cuda.SMALL_POOL
+    assert const("kMaxLarge") == nms_cuda.MAX_POOL
+    assert const("kTop") == nms_cuda.TOP
+    assert const("kTopCap") == nms_cuda.TOP_CAP
+    assert const("kKeptShared") == nms_cuda.KEPT_SHARED
+    assert "int* s = stats + 5 * img;" in src
+    assert nms_cuda.STATS_COLUMNS == 5
+    shifts = re.search(r"kDigitShift\[6\] = \{([\d, ]+)\}", src).group(1)
+    assert tuple(int(x) for x in shifts.split(",")) == _DIGIT_SHIFTS
