@@ -46,20 +46,36 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      through K2's large-pool form, identical to the same function with
      greedy's plain version; every image's pool, ``torch.topk``'s output,
      takes the large form's in-order path;
-  11. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
+  11. ``eval_path``: the evaluation path as a user runs it, on data
+     written while nvcc builds (joined before phase 3): 64 square pairs
+     at 640 (``make_synthetic_pair_dataset``) and the same pairs resized
+     to 640x512.  The flagship from ``cli.val.load_model_and_vars``
+     (seeded init, BN folded, bf16, K3 + K4), ``evaluate`` at the val
+     CLI's defaults (batch 32, 640, conf 0.001, iou 0.6) over the square
+     set (``PairedLoader``), the 640x512 set (``RectLoader``, 544x672
+     batches) and one TTA batch; each run twice: first untimed with every
+     call of K3, K4 and K2 held against its plain version on its inputs
+     (``checked_kernels``; K2's path per image read there), then timed as
+     a user runs it, launches counted from 0 (K3 once and K4 four times a
+     forward, K2's large form once a batch); then both sets' first 8
+     pairs at 320 in f32 (weights conditioned to unit activations,
+     ``condition``) through the kernels, through their plain versions and
+     through the unfused modules, each route's launches asserted, against
+     three gates; then the val CLI once, where ``yaml`` imports;
+  12. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
      version, with kernel, plain, cuDNN and bound times, TFLOP/s, the
      persistent grid (blocks, tiles, shared memory a block) and ptxas's
      registers and spills;
-  12. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
+  13. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
      and ``probe_cem_fb``, each body against its plain version, timed
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  13. the ``kernels`` summary line, the card line, and the final
+  14. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-12) runs with every launch count set to 0 just before it and
+Every path (8-13) runs with every launch count set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
@@ -68,6 +84,7 @@ call behind a spin kernel so that only the card's time counts.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -95,10 +112,46 @@ K1_TOL = 0.02
 K3_TOL = {"bfloat16": 0.02, "float32": 1e-4}
 # K4: K1's gate; the merge adds one bf16 rounding to K1's compounding ones.
 K4_TOL = 0.02
+# K4 on the eval path's own inputs (the val CLI's seeded init): the streams
+# are small next to the final LayerNorm's output, so max |plain| is the
+# upsampled transformer output alone and carries all of K1's compounded
+# roundings: there the kernel reads up to 3.2% of max |plain| on an H100
+# (2% is K4_TOL, phase 7's gate), and on a call's first images it sits no
+# further from the plain version than the plain version on the CPU sits
+# from itself on the card (2.2%; ``err_same_images`` and
+# ``plain_spread``, in every run).  Twice that spread: 5%.  A fault in the
+# pooling windows or the interpolation moves values by their own size.
+K4_EVAL_TOL = 0.05
+SPREAD_IMAGES = 4
 # the layer GEMM alone: sums in another order flip single bf16 roundings
 # (2^-8 of a value), nothing compounds: 1e-2 of max |plain|
 GEMM_TOL = 1e-2
 PATH_TOL = 2e-2                 # f32 model, kernels vs plain versions
+# eval_path, f32, the kernel route against the same model with each kernel
+# replaced by its plain version (the same rounding points), on the same
+# batches (the bf16 runs hold each kernel call against its plain version
+# with K3_TOL / K4_EVAL_TOL, at every shape the path gives it): (1) on the
+# synthetic labels, P, R, mAP@.5 and mAP@.5:.95 within 1e-3: sums in
+# another order move scores by about 1e-6, which may swap detections of
+# near-equal score and move P and R, read off curves interpolated in the
+# score, by a little; with random weights these metrics sit near 0 (P
+# below 0.006, mAP@.5 below 0.002), so this gate is weak and the two
+# below carry the comparison; (2) against the plain versions' 20 best
+# detections per image as labels, the kernel route's 20 best at mAP@.5 >=
+# 0.95: the same boxes must come out on top, which random weights cannot
+# show on the synthetic labels; (3) the predictions before NMS: max |box
+# error| over max |box| and max |confidence error| each within 2e-2, the
+# f32 path gate's PATH_TOL.  None of the three separates the kernel route
+# from the unfused modules (no bf16 rounding in the merges): K4's bf16
+# roundings flip with the order of sums and compound through 8 layers, so
+# the kernel route sits as far from its plain versions (predictions about
+# 0.5%) as from the modules; a fault in a window, a halo or an
+# interpolation weight moves values by their own size
+EVAL_METRIC_TOL = 1e-3
+EVAL_PSEUDO_MAP50 = 0.95
+EVAL_PSEUDO_TOP = 20
+EVAL_PRED_TOL = PATH_TOL
+EVAL_DATA = ROOT / "runs" / "chip_smoke_eval"  # git-ignored; removed after
 LEVELS = ((128, 160, True), (256, 80, False), (512, 40, False),
           (1024, 20, False))    # flagship fusion levels at 640: C, H = W, gate
 
@@ -868,7 +921,7 @@ def phase_path(torch, dev, card: str, phase: str, vs_phase: str,
     return launches, pred
 
 
-# ----------------------------------------------------------- phases 10-12
+# -------------------------------------------------------------- phase 10
 def phase_eval_nms(torch, pred):
     """The evaluator's NMS (``pre_nms_topk=30000, multi_label=True`` at conf
     0.001, ``mmidet_tpu/eval/evaluator.py:56-63``) on the flagship's bf16
@@ -925,6 +978,463 @@ def phase_eval_nms(torch, pred):
         raise AssertionError(f"the evaluator's pool, torch.topk's output, "
                              f"did not take K2's in-order path: {rec}")
     return launches
+
+
+# --------------------------------------------------------------- phase 11
+def write_eval_data() -> float:
+    """The eval_path phase's two datasets under ``EVAL_DATA``: 64 square
+    pairs at 640 (``make_synthetic_pair_dataset``), then the same pairs
+    resized to 640x512 with the same labels (YOLO labels are normalized,
+    so a resize keeps them), for ``RectLoader``.  Returns the seconds
+    taken."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    t0 = time.perf_counter()
+    shutil.rmtree(EVAL_DATA, ignore_errors=True)
+    square, rect = EVAL_DATA / "square", EVAL_DATA / "rect"
+    make_synthetic_pair_dataset(str(square), n=64, img=640, split="val")
+    for d in ("val_rgb/images", "val_ir/images"):
+        (rect / d).mkdir(parents=True)
+    shutil.copytree(square / "val_rgb" / "labels", rect / "val_rgb" / "labels")
+
+    def resized(src: Path) -> None:
+        Image.open(src).resize((640, 512), Image.BILINEAR).save(
+            rect / src.relative_to(square), compress_level=1)
+    with ThreadPoolExecutor(4) as pool:  # PIL's codecs release the GIL
+        list(pool.map(resized, sorted(square.glob("val_*/images/*.png"))))
+    return time.perf_counter() - t0
+
+
+def condition(torch, model, rgb, ir) -> None:
+    """Layer-sequential unit variance (LSUV, arXiv:1511.06422) on these
+    images: in one forward pass, in execution order, every convolution of
+    the backbones and the neck is scaled (weight and folded bias) so that
+    its output has unit spread; the Detect convs keep their init.  A seeded
+    init lets activations fade through the depth, so that every score sits
+    within 1e-7 of the Detect prior and the ranking that AP reads is
+    rounding noise; after this the scores depend on the image and spread
+    apart."""
+    head = set(model.model[-1].m)
+
+    def unit(mod, inp, out):
+        s = float(out.float().std())
+        mod.weight.div_(s)
+        mod.bias.div_(s)
+        return out / s
+
+    # the fusion blocks' pattern-gate convs (no bias, each applied to both
+    # streams), the CEM and the head stay as they are
+    hooks = [mod.register_forward_hook(unit)
+             for name, mod in model.named_modules()
+             if isinstance(mod, torch.nn.Conv2d) and mod.bias is not None
+             and mod not in head and not name.startswith("Enhance")]
+    with torch.no_grad():
+        model(rgb, ir)
+    for h in hooks:
+        h.remove()
+
+
+def unprepared(stacked: dict) -> dict:
+    """A stack the kernels read (``prepare_stack``: q, k, v joined) as the
+    plain versions read it."""
+    if "wqkv" not in stacked:
+        return stacked
+    out = dict(stacked)
+    for name, joined in (("w", out.pop("wqkv")), ("b", out.pop("bqkv"))):
+        for part, t in zip("qkv", joined.chunk(3, 1)):
+            out[name + part] = t
+    return out
+
+
+@contextlib.contextmanager
+def plain_versions(torch):
+    """The flagship's kernels (K3, K4, K2) replaced by their plain PyTorch
+    versions, on the card: the same rounding points, the order of sums
+    aside."""
+    from unittest import mock
+
+    from mmidet_tpu_torch.nn import cem_cuda, fusion, fusion_cuda
+    from mmidet_tpu_torch.ops import nms as nms_mod
+    from mmidet_tpu_torch.ops import nms_cuda
+
+    def merge(rgb, ir, stacked, *args, **kw):
+        return fusion_cuda.fused_gpt_merge_reference(
+            rgb, ir, unprepared(stacked), *args, **kw)
+
+    def cem(x, *params, pack=None):
+        return cem_cuda.fused_cem_reference(x, *params)
+    with mock.patch.object(fusion, "fused_gpt_merge", merge), \
+            mock.patch.object(cem_cuda, "fused_cem", cem), \
+            mock.patch.object(nms_mod, "nms_greedy",
+                              nms_cuda.nms_greedy_reference):
+        yield
+
+
+@contextlib.contextmanager
+def checked_kernels(torch, checks: list, paths: list):
+    """The flagship's kernels (K3, K4, K2) each held against its plain
+    version call by call, on the inputs the path gives it: K3 and K4 by
+    max |kernel - plain| against ``K3_TOL`` / ``K4_EVAL_TOL`` of max
+    |plain|, K2 by identical indices; one record a call into ``checks``
+    (K4's with the plain version's own spread) and K2's
+    path per image (``nms_greedy(stats=)``) into ``paths``.  The plain
+    versions and the stats read sit in the caller's time: for a run that
+    is not timed."""
+    import functools
+    from unittest import mock
+
+    from mmidet_tpu_torch.nn import cem_cuda, fusion, fusion_cuda
+    from mmidet_tpu_torch.ops import nms as nms_mod
+    from mmidet_tpu_torch.ops import nms_cuda
+    merge_kernel, cem_kernel = fusion.fused_gpt_merge, cem_cuda.fused_cem
+
+    def record(name, shape, outs, refs, tol):
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(outs, refs))
+        top = max(float(r.float().abs().max()) for r in refs)
+        checks.append({"kernel": name, "shape": list(shape),
+                       "max_abs_err": err, "max_abs_ref": top, "tol": tol,
+                       "ok": err <= tol * top})
+
+    def cpu(x):
+        if isinstance(x, dict):
+            return {k: cpu(v) for k, v in x.items()}
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def merge(rgb, ir, stacked, *args, **kw):
+        out = merge_kernel(rgb, ir, stacked, *args, **kw)
+        plain = fusion_cuda.fused_gpt_merge_reference(
+            rgb, ir, unprepared(stacked), *args, **kw)
+        record("fused_gpt_merge", rgb.shape, out, plain, K4_EVAL_TOL)
+        # the plain version's own spread: on the CPU (sums in another
+        # order) against the card, on the call's first images, beside the
+        # kernel's error on the same images
+        n = min(SPREAD_IMAGES, rgb.shape[0])
+        on_cpu = fusion_cuda.fused_gpt_merge_reference(
+            rgb[:n].cpu(), ir[:n].cpu(), cpu(unprepared(stacked)),
+            *(cpu(a) for a in args), **kw)
+        top = checks[-1]["max_abs_ref"]
+        checks[-1]["plain_spread"] = max(
+            float((c.float() - p[:n].float().cpu()).abs().max())
+            for c, p in zip(on_cpu, plain)) / top
+        checks[-1]["err_same_images"] = max(
+            float((o[:n].float() - p[:n].float()).abs().max())
+            for o, p in zip(out, plain)) / top
+        return out
+
+    # K3's wrapper counts its launches on the name it is bound to, which
+    # this replaces while it runs: wraps() gives the stand-in that count
+    @functools.wraps(cem_kernel)
+    def cem(x, *params, pack=None):
+        out = cem_kernel(x, *params, pack=pack)
+        record("fused_cem", x.shape, (out,),
+               (cem_cuda.fused_cem_reference(x, *params),),
+               K3_TOL[str(x.dtype).split(".")[-1]])
+        return out
+
+    def nms(boxes, scores, iou_thres, max_det):
+        stats = torch.zeros(boxes.shape[0], nms_cuda.STATS_COLUMNS,
+                            dtype=torch.int32, device=boxes.device)
+        idx, valid = nms_cuda.nms_greedy(boxes, scores, iou_thres, max_det,
+                                         stats=stats)
+        r_idx, r_valid = nms_cuda.nms_greedy_reference(boxes, scores,
+                                                       iou_thres, max_det)
+        same = bool(torch.equal(idx, r_idx) and torch.equal(valid, r_valid))
+        checks.append({"kernel": "nms_greedy", "shape": list(boxes.shape[:2]),
+                       "identical": same, "ok": same})
+        paths.extend(stats[:, 4].tolist())
+        return idx, valid
+    with mock.patch.object(fusion, "fused_gpt_merge", merge), \
+            mock.patch.object(cem_cuda, "fused_cem", cem), \
+            mock.patch.object(nms_mod, "nms_greedy", nms):
+        yield
+
+
+def check_summary(checks: list) -> dict:
+    """Per kernel: calls, the shapes met, the largest error as a share of
+    max |plain| (K3, K4) or whether every call was identical (K2)."""
+    out = {}
+    for name in sorted({c["kernel"] for c in checks}):
+        cs = [c for c in checks if c["kernel"] == name]
+        rec = {"calls": len(cs), "ok": all(c["ok"] for c in cs),
+               "shapes": [list(x) for x in
+                          sorted({tuple(c["shape"]) for c in cs})]}
+        if "tol" in cs[0]:
+            rec["max_err_over_max_ref"] = max(
+                c["max_abs_err"] / c["max_abs_ref"] for c in cs)
+            rec["tol"] = cs[0]["tol"]
+        for key in ("plain_spread", "err_same_images"):
+            if key in cs[0]:
+                rec[key] = max(c[key] for c in cs)
+        out[name] = rec
+    return out
+
+
+def pseudo_labelled(torch, model, batches, dev, top: int):
+    """The batches with each image's labels replaced by ``model``'s own
+    ``top`` best detections (the evaluator's NMS; padded-frame normalized
+    xywh), to be matched in the letterboxed frame as they are: ``shapes``
+    is the identity, so that boxes reaching past the image, which random
+    weights make many of, are not clipped onto one another (two labels
+    clipped to the same box let only one detection match)."""
+    import numpy as np
+
+    from mmidet_tpu_torch.eval.evaluator import infer_batch
+    out = []
+    for b in batches:
+        rgb = torch.from_numpy(b["rgb"]).to(dev).float() / 255.0
+        ir = torch.from_numpy(b["ir"]).to(dev).float() / 255.0
+        with torch.inference_mode():
+            dets, valid = infer_batch(model, rgb, ir, 0.001, 0.6)
+        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+        ih, iw = rgb.shape[1:3]
+        targets = np.zeros((len(dets), top, 5), np.float32)
+        mask = np.zeros((len(dets), top), bool)
+        for i in range(len(dets)):
+            d = dets[i][valid[i]][:top]  # in the kernel's (score) order
+            n = len(d)
+            targets[i, :n] = np.stack([
+                d[:, 5], (d[:, 0] + d[:, 2]) / 2 / iw,
+                (d[:, 1] + d[:, 3]) / 2 / ih, (d[:, 2] - d[:, 0]) / iw,
+                (d[:, 3] - d[:, 1]) / ih], 1)
+            mask[i, :n] = True
+        unclipped = [((1e9, 1e9), (1.0, (0.0, 0.0)))] * len(dets)
+        out.append({**b, "targets": targets, "mask": mask,
+                    "shapes": unclipped})
+    return out
+
+
+def phase_eval_path(torch, dev, card: str, data_seconds: float):
+    """The evaluation path (``cli/val.py`` -> loaders -> the flagship ->
+    the evaluator's NMS -> matching and AP) on the card; see the module
+    docstring, step 11."""
+    import itertools
+    import shutil
+
+    from mmidet_tpu_torch.cli import val as val_cli
+    from mmidet_tpu_torch.data import native
+    from mmidet_tpu_torch.data.datasets import PairedDataset
+    from mmidet_tpu_torch.data.loader import PairedLoader, RectLoader
+    from mmidet_tpu_torch.eval.evaluator import evaluate
+
+    t_phase = time.perf_counter()
+    sets = {k: PairedDataset(str(EVAL_DATA / k / "val_rgb" / "images"),
+                             str(EVAL_DATA / k / "val_ir" / "images"), nc=2)
+            for k in ("square", "rect")}
+    names = ["box", "blob"]
+    model, spec = val_cli.load_model_and_vars("yolov5l_fuse3_fourier", "", 2,
+                                              device=dev)
+    flags = val_cli.kernel_routes(spec, use_cem=True)
+    if flags != {"kernel_cem": True, "kernel_merge": True,
+                 "kernel_fusion": False} or \
+            next(model.parameters()).dtype != torch.bfloat16:
+        raise AssertionError(f"the val CLI's flagship is not the deploy "
+                             f"form: {flags}")
+
+    def run(name, loader, leg, forwards_per_batch=1, **kw):
+        # untimed: every kernel call against its plain version at the
+        # path's shapes, and K2's path per image (this pass also warms up)
+        checks, paths = [], []
+        with checked_kernels(torch, checks, paths):
+            evaluate(model, loader(), nc=2, conf_thres=0.001, iou_thres=0.6,
+                     names=names, device=dev, **kw)
+        checked = check_summary(checks)
+        # timed, as a user runs it: launches counted from 0
+        shapes = []
+
+        def batches():
+            for b in loader():
+                shapes.append(tuple(b["rgb"].shape))
+                yield b
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = evaluate(model, batches(), nc=2, conf_thres=0.001,
+                       iou_thres=0.6, names=names, device=dev, **kw)
+        secs = time.perf_counter() - t0
+        nb = len(shapes)
+        n_img = sum(s[0] for s in shapes)
+        fw = nb * forwards_per_batch
+        launches = read_counts(fused_cem=fw, fused_gpt_merge=4 * fw,
+                               nms_greedy=nb, nms_greedy_large=nb)
+        calls = {k: v["calls"] for k, v in checked.items()}
+        if not all(v["ok"] for v in checked.values()) or calls != {
+                "fused_cem": fw, "fused_gpt_merge": 4 * fw,
+                "nms_greedy": nb} or len(paths) != n_img:
+            raise AssertionError(f"eval_path {name}: a kernel disagrees "
+                                 f"with its plain version or was not "
+                                 f"checked on every call: {checked}")
+        return {"run": name, "batches": nb, "images": n_img,
+                "batch_shapes": [list(x[1:3]) for x in sorted(set(shapes))],
+                "loader_native": bool(leg), "launches": launches,
+                "k2_paths": {p: paths.count(p) for p in sorted(set(paths))},
+                "checked": checked,
+                "speed_ms": res.speed_ms[0], "seconds": secs,
+                "img_per_s": n_img / secs,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "P": res.mp, "R": res.mr, "mAP50": res.map50,
+                "mAP": res.map}
+
+    def square_loader(img=640, ds=None, bs=32):
+        return PairedLoader(ds or sets["square"], bs, img, drop_last=False,
+                            scaleup=False)
+
+    tta_batch = list(itertools.islice(square_loader(), 1))
+    square_leg = square_loader().use_native
+    runs = [run("square", square_loader, square_leg),
+            run("rect", lambda: RectLoader(sets["rect"], 32, 640),
+                RectLoader(sets["rect"], 32, 640).use_native),
+            run("tta", lambda: tta_batch, square_leg, forwards_per_batch=3,
+                augment=True)]
+    for r in runs:
+        emit({"phase": "eval_path", "model": "yolov5l_fuse3_fourier",
+              "card": card, "dtype": "bfloat16", "flags": flags,
+              "native_available": native.available(),
+              "gxx": shutil.which("g++") is not None, **r})
+    want_shapes = {"square": [[640, 640]], "rect": [[544, 672]],
+                   "tta": [[640, 640]]}
+    for r in runs:
+        want_images = min(32, len(sets["square"])) if r["run"] == "tta" \
+            else len(sets[r["run"]])
+        if r["batch_shapes"] != want_shapes[r["run"]] or \
+                r["images"] != want_images:
+            raise AssertionError(f"eval_path {r['run']}: unexpected batches "
+                                 f"{r}")
+    del model, tta_batch
+    torch.cuda.empty_cache()
+
+    # f32: the kernels against their plain versions on the same batches
+    f32, _ = val_cli.load_model_and_vars("yolov5l_fuse3_fourier", "", 2,
+                                         dtype=torch.float32, device=dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eight = {k: PairedDataset(ds.rgb_files[:8], ds.ir_files[:8], nc=2,
+                              cache_dir=str(EVAL_DATA / k))
+             for k, ds in sets.items()}
+    small = {"square": list(square_loader(320, eight["square"], 8)),
+             "rect": list(RectLoader(eight["rect"], 8, 320))}
+    b0 = small["square"][0]
+    set_kernel_flags(f32, False, False, False)
+    condition(torch, f32, *(torch.from_numpy(b0[k]).to(dev).float() / 255.0
+                            for k in ("rgb", "ir")))
+    gates = []
+    kernel_route, modules_route = (False, True, True), (False, False, False)
+    for name, batches in small.items():
+        nb = len(batches)
+        # launches of each route's evaluate: the plain route none at all
+        # (so the plain versions did replace the kernels), the modules
+        # route K2 alone
+        want = {"kernel": {"fused_cem": nb, "fused_gpt_merge": 4 * nb,
+                           "nms_greedy": nb, "nms_greedy_large": nb},
+                "plain": {"fused_cem": 0},
+                "modules": {"nms_greedy": nb, "nms_greedy_large": nb}}
+        launches = {}
+
+        def run_route(route, labelled=None, **kw):
+            set_kernel_flags(f32, *(modules_route if route == "modules"
+                                    else kernel_route))
+            ctx = plain_versions(torch) if route == "plain" \
+                else contextlib.nullcontext()
+            with ctx:
+                zero_counts()
+                res = evaluate(f32, labelled or batches, nc=2, names=names,
+                               device=dev, **kw)
+                launches[route] = read_counts(**want[route])
+                if labelled:
+                    return res, None, None
+                with torch.inference_mode():
+                    pred = torch.cat([f32(*(
+                        torch.from_numpy(b[k]).to(dev).float() / 255.0
+                        for k in ("rgb", "ir")))["pred"] for b in batches])
+                pseudo = None if route == "kernel" else \
+                    pseudo_labelled(torch, f32, batches, dev,
+                                    EVAL_PSEUDO_TOP)
+            return res, pseudo, pred
+
+        res, pseudo, preds = {}, {}, {}
+        for route in ("kernel", "plain", "modules"):
+            res[route], pseudo[route], preds[route] = run_route(route)
+        # the kernel route's own 20 best per image against each other
+        # route's 20 best (AP pools the images; random weights do not
+        # calibrate scores across images, so a 21st detection of one image
+        # could outrank the first of another)
+        vs = {route: run_route("kernel", pseudo[route],
+                               max_det=EVAL_PSEUDO_TOP)[0]
+              for route in ("plain", "modules")}
+        metrics = {route: [r.mp, r.mr, r.map50, r.map]
+                   for route, r in res.items()}
+
+        def diff(route):
+            return max(abs(a - b) for a, b in zip(metrics["kernel"],
+                                                  metrics[route]))
+
+        def pred_diff(route):  # boxes over max |box|; confidences absolute
+            k, p = preds["kernel"], preds[route]
+            return [float((k[..., :4] - p[..., :4]).abs().max()
+                          / p[..., :4].abs().max()),
+                    float((k[..., 4:] - p[..., 4:]).abs().max())]
+        rec = {"phase": "eval_path_vs_plain", "set": name,
+               "dtype": "float32", "img": 320, "images": 8,
+               "batch_shape": list(batches[0]["rgb"].shape[1:3]),
+               "launches": launches,
+               "P_R_mAP50_mAP": metrics, "max_abs_diff": diff("plain"),
+               "tol": EVAL_METRIC_TOL,
+               "pseudo_labels_per_image": EVAL_PSEUDO_TOP,
+               "pseudo_mAP50": vs["plain"].map50,
+               "pseudo_mAP": vs["plain"].map,
+               "pseudo_min_mAP50": EVAL_PSEUDO_MAP50,
+               "pred_box_rel_conf_abs": pred_diff("plain"),
+               "pred_tol": EVAL_PRED_TOL,
+               # not gated: the unfused modules in f32 (K4 rounds its
+               # streams to bf16 by design, as the TPU kernel does)
+               "modules_max_abs_diff": diff("modules"),
+               "modules_pseudo_mAP50": vs["modules"].map50,
+               "modules_pseudo_mAP": vs["modules"].map,
+               "modules_pred_box_rel_conf_abs": pred_diff("modules")}
+        emit(rec)
+        gates.append(rec)
+        if rec["max_abs_diff"] > EVAL_METRIC_TOL or \
+                rec["pseudo_mAP50"] < EVAL_PSEUDO_MAP50 or \
+                max(rec["pred_box_rel_conf_abs"]) > EVAL_PRED_TOL:
+            raise AssertionError(f"eval_path: the kernel route disagrees "
+                                 f"with the plain versions: {rec}")
+    del f32
+    torch.cuda.empty_cache()
+
+    # the val CLI itself, where yaml imports (the card machine may lack it)
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        cli = {"phase": "eval_path_cli", "ran": False,
+               "reason": "yaml does not import"}
+    else:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            val_cli.main(["--cfg", "yolov5l_fuse3_fourier", "--data",
+                          str(EVAL_DATA / "square" / "synthetic.yaml"),
+                          "--batch-size", "32", "--img-size", "640"],
+                         device=dev)
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        if set(line) != {"P", "R", "mAP50", "mAP75", "mAP", "speed_ms"} or \
+                not all(math.isfinite(v) for v in line.values()):
+            raise AssertionError(f"the val CLI's JSON line: {line}")
+        cli = {"phase": "eval_path_cli", "ran": True,
+               "seconds": time.perf_counter() - t0, "json": line}
+    try:
+        import matplotlib  # noqa: F401
+        cli["matplotlib"] = True
+    except ImportError:
+        cli["matplotlib"] = False
+    emit({**cli, "data_seconds": data_seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(EVAL_DATA, ignore_errors=True)
+    return runs, gates, cli
 
 
 def phase_p1(torch, dev):
@@ -986,6 +1496,8 @@ def majority_bound(recs):
 
 
 def main() -> int:
+    import threading
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1001,11 +1513,23 @@ def main() -> int:
     # the plain versions and the f32 comparisons run in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    # eval_path's data is written while nvcc builds, and is complete
+    # before the first timed phase
+    data = {}
+    writer = threading.Thread(
+        target=lambda: data.update(seconds=write_eval_data()), daemon=True)
+    writer.start()
     secs = kernels.build_all()
     regs = [ln.strip() for n in kernels.LIBRARIES
             for ln in kernels.build_log(n).splitlines() if "Used" in ln]
+    t0 = time.perf_counter()
+    writer.join()
+    if "seconds" not in data:
+        raise RuntimeError("writing eval_path's data failed")
     emit({"phase": "build", "seconds": secs,
-          "libraries": list(kernels.LIBRARIES), "ptxas": regs})
+          "libraries": list(kernels.LIBRARIES), "ptxas": regs,
+          "eval_data_seconds": data["seconds"],
+          "eval_data_wait_seconds": time.perf_counter() - t0})
 
     phase_layer_gemm(torch, dev, card)
     k1 = phase_k1(torch, dev)
@@ -1025,6 +1549,7 @@ def main() -> int:
         alt_flags={"kernel_fusion": True})
     eval_nms = phase_eval_nms(torch, pred)
     del pred
+    phase_eval_path(torch, dev, name, data["seconds"])
     p1, p1_launches = phase_p1(torch, dev)
     p2, p3, probe_launches = phase_p2_p3(torch, dev)
 

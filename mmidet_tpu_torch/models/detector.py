@@ -8,6 +8,9 @@ stream.  Modules sit at ``model.{i}`` (parameter-free layers hold an
 ``nn.Identity``) and the CEM at ``Enhance``, the reference's state-dict
 names.
 
+Single-stream models (reference ``models/yolo.py``) run through the same
+executor: a spec without ``-4`` refs, ``use_cem=False`` and ``ir=None``.
+
 Public layout is the JAX package's: images NHWC ``(B, H, W, 3)`` in [0, 1];
 ``pred`` ``(B, N, 5+nc)``; ``train_outs`` per level ``(B, na, ny, nx, no)``.
 Inside, tensors are NCHW.
@@ -26,7 +29,7 @@ from mmidet_tpu_torch.nn.fusion import (CrossModalTransformer,
                                         FourierPatternFusion, PatternFusion)
 from mmidet_tpu_torch.nn.resize import nearest_upsample
 
-_PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample"}
+_PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample", "nn.Upsample"}
 _FUSION = {"GPT": CrossModalTransformer, "GPT1": PatternFusion,
            "GPT1_fourier": FourierPatternFusion}
 
@@ -38,7 +41,9 @@ def _nhwc(t):
 
 
 class TwoStreamDetector(nn.Module):
-    """``fused``: BN folded into the convs (deploy form).
+    """``use_cem``: the CEM front end on the RGB input (without it the
+    module has no ``Enhance`` submodule).
+    ``fused``: BN folded into the convs (deploy form).
     ``kernel_fusion``: the fusion transformers run the fused token
     transformer kernel (the JAX package's ``pallas_fusion``).
     ``kernel_cem``: the CEM runs as the fused CEM kernel (``pallas_cem``;
@@ -50,8 +55,9 @@ class TwoStreamDetector(nn.Module):
     (NHWC), for layer-by-layer comparison."""
 
     def __init__(self, spec: ModelSpec, aux_mode: str = "off",
-                 fused: bool = False, kernel_fusion: bool = False,
-                 kernel_cem: bool = False, kernel_merge: bool = False,
+                 use_cem: bool = True, fused: bool = False,
+                 kernel_fusion: bool = False, kernel_cem: bool = False,
+                 kernel_merge: bool = False,
                  truncate_at: int | None = None):
         super().__init__()
         if aux_mode != "off":
@@ -60,8 +66,10 @@ class TwoStreamDetector(nn.Module):
         self.spec = spec
         self.truncate_at = truncate_at
         self.resolved, self.save = resolve(spec)
-        self.Enhance = ContourEnhance(spec.ch_in, fused,
-                                      use_kernel=kernel_cem)
+        self.use_cem = use_cem
+        if use_cem:
+            self.Enhance = ContourEnhance(spec.ch_in, fused,
+                                          use_kernel=kernel_cem)
         ch = [rl.c_out for rl in self.resolved]
 
         def ch_of(j, i):
@@ -98,10 +106,12 @@ class TwoStreamDetector(nn.Module):
             mods.append(mod)
         self.model = nn.ModuleList(mods)
 
-    def forward(self, rgb: torch.Tensor, ir: torch.Tensor):
+    def forward(self, rgb: torch.Tensor, ir: torch.Tensor | None = None):
         dt = next(self.parameters()).dtype
-        x = self.Enhance(rgb.permute(0, 3, 1, 2).to(dt))
-        x2 = ir.permute(0, 3, 1, 2).to(dt)
+        x = rgb.permute(0, 3, 1, 2).to(dt)
+        if self.use_cem:
+            x = self.Enhance(x)
+        x2 = None if ir is None else ir.permute(0, 3, 1, 2).to(dt)
         y: dict[int, object] = {}
         # fusion layers whose outputs are already merged into the streams
         premerged: set[int] = set()
@@ -109,7 +119,11 @@ class TwoStreamDetector(nn.Module):
             def get(j):
                 if j == -1:
                     return x
-                return x2 if j == SECOND_INPUT else y[j]
+                if j == SECOND_INPUT:
+                    if x2 is None:
+                        raise ValueError("spec needs a second (IR) input")
+                    return x2
+                return y[j]
 
             inp = [get(j) for j in rl.f] if isinstance(rl.f, tuple) \
                 else get(rl.f)
@@ -123,7 +137,7 @@ class TwoStreamDetector(nn.Module):
                     x = inp[1][rl.args[0]]
                 else:
                     x = inp[0] + inp[1][rl.args[0]]
-            elif m == "Upsample":
+            elif m in ("Upsample", "nn.Upsample"):
                 # args follow torch nn.Upsample(size, scale_factor, mode)
                 if rl.args[2] != "nearest":
                     raise NotImplementedError(f"Upsample mode {rl.args[2]!r}")

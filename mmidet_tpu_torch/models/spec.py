@@ -1,7 +1,8 @@
 """Declarative model specification and channel resolution.
 
-A verbatim copy of ``mmidet_tpu/models/spec.py`` up to ``resolve`` (the
-port imports nothing of the JAX package).
+A copy of ``mmidet_tpu/models/spec.py`` (the port imports nothing of the
+JAX package); ``_infer_strides`` runs the port's detector on the ``meta``
+device where the JAX package uses ``jax.eval_shape``.
 
 Replaces the reference's ``parse_model`` (``models/yolo_test.py:548-639``),
 which ``eval()``s module names out of YAML rows and mutates a channel list.
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
 SECOND_INPUT = -4  # sentinel: layer consumes the second (IR) input image
 
 
@@ -185,3 +187,86 @@ def resolve(spec: ModelSpec) -> tuple[list[ResolvedLayer], set[int]]:
         ch.append(c2)
 
     return out, save
+
+
+def load_yolo_yaml(path_or_dict, nc: int | None = None,
+                   anchors=None) -> ModelSpec:
+    """Compatibility loader for reference-format model YAMLs
+    (``[from, number, module, args]`` rows, ``models/*.yaml``).
+
+    Module names are validated against the registry — no ``eval``.  String
+    args like ``'nearest'`` are kept verbatim; ``None`` likewise.
+    """
+    if isinstance(path_or_dict, dict):
+        d = path_or_dict
+    else:
+        import yaml
+        with open(path_or_dict) as fh:
+            d = yaml.safe_load(fh)
+    the_nc = nc or d["nc"]
+    anc = anchors or d["anchors"]
+    if isinstance(anc, int):
+        # 'anchors: <na>' yamls (hub/yolov5-p2/p6/p7) leave anchors to
+        # AutoAnchor; synthesize per-level placeholders (the standard P3
+        # triple scaled 2x per level, cycled to na pairs) for the head to
+        # be constructible — utils/autoanchor refits them before training.
+        na = anc
+        detect_rows = [r for r in d["head"] if r[2] == "Detect"]
+        nl = len(detect_rows[-1][0])
+        base = [(10, 13), (16, 30), (33, 23)]
+        anc = [[v * (2 ** i) for p in range(na)
+                for v in base[p % 3]] for i in range(nl)]
+    # reference YAMLs use symbolic args the reference eval()s against the
+    # yaml dict (yolo_test.py:560): we substitute the known symbols instead
+    symbols = {"None": None, "nc": the_nc, "anchors": anc}
+    layers = []
+    for row in list(d["backbone"]) + list(d["head"]):
+        f, n, m, args = row
+        if m.startswith("models.") or m.startswith("common."):
+            m = m.split(".")[-1]
+        fixed = []
+        for a in args:
+            if isinstance(a, str) and a in symbols:
+                a = symbols[a]
+            if isinstance(a, str) and a not in ("nearest", "bilinear"):
+                raise ValueError(f"non-literal arg {a!r} in YAML (eval is "
+                                 "not supported)")
+            fixed.append(tuple(tuple(x) for x in a)
+                         if isinstance(a, list) and a and
+                         isinstance(a[0], list) else
+                         (tuple(a) if isinstance(a, list) else a))
+        layers.append(LayerDef(
+            f=tuple(f) if isinstance(f, list) else f,
+            n=n, name=m, args=tuple(fixed)))
+    nl = len(anc)
+    spec = ModelSpec(
+        nc=the_nc,
+        anchors=tuple(tuple(a) for a in anc),
+        layers=tuple(layers),
+        strides=tuple(8 * 2 ** i for i in range(nl)),  # provisional
+        depth_multiple=d.get("depth_multiple", 1.0),
+        width_multiple=d.get("width_multiple", 1.0),
+        ch_in=d.get("ch", 3),
+    )
+    return _infer_strides(spec)
+
+
+def _infer_strides(spec: ModelSpec) -> ModelSpec:
+    """Replace the provisional strides with shape-inferred ones (the
+    reference runs a dummy forward and reads 256/ny, yolo_test.py:127;
+    required for P2/P6/P7/tiny head arrangements).  Shape-only: the model
+    is built and run on the ``meta`` device, no memory, no FLOPs."""
+    import torch
+
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+
+    size = 256
+    with torch.device("meta"):
+        model = TwoStreamDetector(spec, use_cem=False).eval()
+        x = torch.empty(1, size, size, spec.ch_in)
+    with torch.no_grad():
+        out = model(x, x if is_two_stream(spec) else None)
+    strides = tuple(size // t.shape[2] for t in out["train_outs"])
+    if strides == spec.strides:
+        return spec
+    return dataclasses.replace(spec, strides=strides)

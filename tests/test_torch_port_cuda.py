@@ -835,3 +835,97 @@ def test_launch_floor_and_stream_pointer(cuda):
     rec = timing.timed(floor, floor, None, 0, 0, 1, floor=floor)
     assert len(rec["floor_ms_turns"]) == len(rec["floor_device_ms_turns"]) == 2
     assert 0 < rec["floor_device_ms"] and 0 < rec["floor_ms"]
+
+
+# ------------------------------------------------------- the evaluation path
+def _rect_dataset(root, n=4, w=96, h=72):
+    """``n`` landscape pairs with one label each (RectLoader makes
+    non-square batches of them)."""
+    from PIL import Image
+
+    from mmidet_tpu_torch.data.datasets import PairedDataset
+    rng = np.random.default_rng(0)
+    for mod in ("rgb", "ir"):
+        (root / mod / "images").mkdir(parents=True)
+    (root / "rgb" / "labels").mkdir()
+    for i in range(n):
+        img = rng.integers(0, 255, (h, w, 3), np.uint8)
+        Image.fromarray(img).save(root / "rgb" / "images" / f"p{i}.png")
+        Image.fromarray(255 - img).save(root / "ir" / "images" / f"p{i}.png")
+        (root / "rgb" / "labels" / f"p{i}.txt").write_text(
+            "%d 0.5 0.5 0.3 0.4\n" % (i % 2))
+    return PairedDataset(str(root / "rgb" / "images"),
+                         str(root / "ir" / "images"), nc=2)
+
+
+def _flagship_small(**flags):
+    torch.manual_seed(0)
+    return fold_batchnorm(TwoStreamDetector(
+        two_stream_spec("l", "fourier", nc=2, fusion_layers=2),
+        **flags)).eval()
+
+
+def test_rect_batch_through_the_flagship_kernel_route(cuda, tmp_path):
+    """A RectLoader batch that is not square (96x128: P5 3x4, K4's 8x8
+    pool windows mixed) through K3 and K4 on the card against their plain
+    versions on the CPU, f32, the gate of the square test above."""
+    from mmidet_tpu_torch.data.loader import RectLoader
+    batch = next(iter(RectLoader(_rect_dataset(tmp_path), 4, img_size=96)))
+    assert batch["rgb"].shape[1:3] == (96, 128)
+    rgb, ir = (torch.from_numpy(batch[k]).float() / 255.0
+               for k in ("rgb", "ir"))
+    model = _flagship_small(kernel_cem=True, kernel_merge=True)
+    with torch.no_grad():
+        want = model(rgb, ir)["pred"]
+        before = (cem_cuda.fused_cem.launches,
+                  fusion_cuda.fused_gpt_merge.launches)
+        got = model.to(cuda)(rgb.to(cuda), ir.to(cuda))["pred"].cpu()
+    assert (cem_cuda.fused_cem.launches,
+            fusion_cuda.fused_gpt_merge.launches) == (before[0] + 1,
+                                                      before[1] + 4)
+    assert got.shape == (4, 3 * (12 * 16 + 6 * 8 + 3 * 4), 7)
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_evaluate_on_the_card_counts_its_launches(cuda, tmp_path):
+    """``evaluate`` with its default device (the card) over two batches at
+    320 (K = 12600 candidates: K2's large form) through K3 and K4."""
+    from mmidet_tpu_torch.data.loader import PairedLoader
+    from mmidet_tpu_torch.eval.evaluator import evaluate
+    ds = _rect_dataset(tmp_path)
+    model = _flagship_small(kernel_cem=True, kernel_merge=True).to(
+        torch.bfloat16)
+    before = (cem_cuda.fused_cem.launches,
+              fusion_cuda.fused_gpt_merge.launches,
+              nms_cuda.nms_greedy.launches,
+              nms_cuda.nms_greedy.launches_large)
+    res = evaluate(model, PairedLoader(ds, 2, 320, drop_last=False,
+                                       scaleup=False), nc=2)
+    torch.cuda.synchronize()
+    assert next(model.parameters()).device.type == "cuda"
+    assert (cem_cuda.fused_cem.launches,
+            fusion_cuda.fused_gpt_merge.launches,
+            nms_cuda.nms_greedy.launches,
+            nms_cuda.nms_greedy.launches_large) == (
+                before[0] + 2, before[1] + 8, before[2] + 2, before[3] + 2)
+    assert 0.0 <= res.map50 <= 1.0 and res.speed_ms[0] > 0
+
+
+def test_val_cli_on_the_card(cuda, tmp_path, capsys):
+    pytest.importorskip("yaml")
+    import json
+
+    from mmidet_tpu_torch.cli import val
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    data = make_synthetic_pair_dataset(str(tmp_path), n=6, img=96)
+    before = (tc.fused_token_transformer.launches, cem_cuda.fused_cem.launches,
+              nms_cuda.nms_greedy.launches)
+    res = val.main(["--cfg", "yolov5s_gpt4", "--data", data,
+                    "--batch-size", "2", "--img-size", "64"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"P", "R", "mAP50", "mAP75", "mAP", "speed_ms"}
+    assert line["mAP"] == res.map
+    # three batches: K1 at the four fusion levels, K3 and K2 once each
+    assert (tc.fused_token_transformer.launches, cem_cuda.fused_cem.launches,
+            nms_cuda.nms_greedy.launches) == (
+                before[0] + 12, before[1] + 3, before[2] + 3)

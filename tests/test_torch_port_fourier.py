@@ -154,8 +154,8 @@ def test_get_model_spec_overrides_and_refuses():
     spec = port_zoo.get_model_spec("yolov5l_fuse3_fourier", nc=2)
     assert spec.nc == 2 and spec.no == 21
     assert port_zoo.get_model_spec("yolov5l_fuse3_fourier").nc == 6
-    with pytest.raises(ValueError, match="not ported"):
-        port_zoo.get_model_spec("yolov5m_add")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_zoo.get_model_spec("yolov5m_mamba")
     with pytest.raises(ValueError, match="GPT1_fourier d_model"):
         port_spec_mod.resolve(port_zoo.get_model_spec("yolov5s_fuse3_fourier"))
 

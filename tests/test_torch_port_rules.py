@@ -185,3 +185,26 @@ def test_kernel_sources_are_in_the_package():
         assert (kernels.CSRC / f"{name}.cu").is_file()
     for src in kernels.CSRC.glob("*.cu"):
         assert src.stem in kernels.LIBRARIES, src.name
+
+
+def test_eval_path_modules_are_covered_and_default_to_the_card():
+    """The evaluation path's modules are among the files the import rule
+    above reads, and its entry points run on the card unless asked for
+    the CPU."""
+    import inspect
+
+    from mmidet_tpu_torch.cli import detect, val
+    from mmidet_tpu_torch.eval import evaluator
+    port = ROOT / "mmidet_tpu_torch"
+    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
+    assert {"data/datasets.py", "data/synthetic.py", "data/native.py",
+            "data/loader.py", "models/spec.py", "models/zoo.py",
+            "models/detector.py", "models/tta.py", "eval/metrics.py",
+            "eval/evaluator.py", "utils/general.py", "utils/plots.py",
+            "cli/val.py", "cli/detect.py"} <= files
+    for fn in (evaluator.evaluate, val.main, val.load_model_and_vars,
+               detect.main):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            evaluator.eval_device("cuda")
