@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main paths spend their time on one NVIDIA card.
 
-    python3 chip_profile.py [p1 | k2]
+    python3 chip_profile.py [p1 | k2 | train]
 
 Builds the same seeded deploy models as ``chip_smoke.py`` (BN folded, bf16,
 batch 16 at 640x640) and prints JSON lines:
@@ -18,6 +18,14 @@ batch 16 at 640x640) and prints JSON lines:
   * ``k2_phases``, only when ``k2`` is the only argument, and then alone:
     K2's large form at B = 16, K = 30000 on four pools, as built and with
     parts of its work left out (``-DNMS_SKIP=<mask>``);
+  * ``train_breakdown``, only when ``train`` is the only argument, and
+    then alone: the flagship's training at 640, batch 8, bf16 autocast,
+    aux losses as the reference, under ``torch.profiler``, in two windows:
+    one micro-step as the trainer runs it (augmentation, forward, loss,
+    backward) and one optimizer step with the EMA update; each window's
+    host wall time with and without the profiler, device busy time and
+    idle share (busy time over the unprofiled wall time), device time by the
+    PyTorch operator that launched each kernel, and the top kernels;
   * ``memory_format``: yolov5s_gpt4's forward time in NCHW and in
     channels_last memory format, timed in turns (nchw, cl, cl, nchw) with
     CUDA events;
@@ -36,6 +44,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -407,6 +416,115 @@ def breakdown(torch, model, rgb, ir, groups, label: dict) -> None:
           flush=True)
 
 
+def profiled(torch, fn, label: dict, reps: int = 5) -> None:
+    """``fn()`` once under ``torch.profiler``: the device's busy time,
+    device time by launching operator and by kernel (overlapping intervals
+    charged once, to the earlier).  The profiler slows the host, so the
+    window's wall time is also the median of ``reps`` calls without it,
+    and the idle share is the busy time over that (``idle_share``; the
+    profiled window's own is ``idle_share_profiled``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    plain_ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    plain = statistics.median(plain_ms)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    reach, busy, by_kernel = float("-inf"), 0.0, {}
+    for evt in kernels:
+        own = max(0.0, evt.time_range.end
+                  - max(evt.time_range.start, reach)) / 1e3
+        reach = max(reach, evt.time_range.end)
+        busy += own
+        acc = by_kernel.setdefault(evt.name[:80], [0.0, 0])
+        acc[0] += own
+        acc[1] += 1
+    by_op: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU:
+            continue
+        for k in evt.kernels:
+            acc = by_op.setdefault(evt.name, [0.0, 0])
+            acc[0] += k.duration / 1e3
+            acc[1] += 1
+
+    def top(d, n):
+        return dict(sorted(d.items(), key=lambda kv: -kv[1][0])[:n])
+    print(json.dumps({
+        "phase": "train_breakdown", **label, "wall_ms": plain,
+        "wall_ms_unprofiled": plain_ms, "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy,
+        "idle_share": (1 - busy / plain) if busy else "not measured",
+        "idle_share_profiled": (1 - busy / wall_ms) if busy
+        else "not measured",
+        "launches": len(kernels),
+        "device_ms_and_launches_by_operator": top(by_op, 24),
+        "top_kernels_ms_and_launches": top(by_kernel, 12)}), flush=True)
+
+
+def train_breakdown(torch, card: str) -> None:
+    """The flagship's training on the card: see the module docstring."""
+    from mmidet_tpu_torch.data.augment import AugmentHyp, make_batch_augment
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    from mmidet_tpu_torch.train.optimizer import build_optimizer
+    from mmidet_tpu_torch.train.schedule import ScheduleConfig
+    from mmidet_tpu_torch.train.step import init_state, make_train_step
+    from mmidet_tpu_torch.train.trainer import anchors_grid
+    dev = torch.device("cuda", 0)
+    B, S, T = 8, 640, 120
+    torch.manual_seed(0)
+    spec = get_model_spec("yolov5l_fuse3_fourier", nc=2)
+    model = TwoStreamDetector(spec, aux_mode="reference").to(dev)
+    opt, _ = build_optimizer(model, ScheduleConfig(), 0.0005,
+                             total_batch_size=B, nbs=64)
+    state = init_state(model, opt)
+    step = make_train_step(anchors_grid(spec).to(dev), dtype="bfloat16")
+    augment = make_batch_augment(S, AugmentHyp(), T)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    targets = torch.zeros(B, T, 5, device=dev)
+    targets[:, :10, 0] = torch.randint(0, 2, (B, 10), generator=gen,
+                                       device=dev).float()
+    targets[:, :10, 1:] = torch.rand(B, 10, 4, generator=gen,
+                                     device=dev) * 0.3 + 0.2
+    raw = {"rgb": torch.rand(B, S, S, 3, generator=gen, device=dev),
+           "ir": torch.rand(B, S, S, 3, generator=gen, device=dev),
+           "targets": targets,
+           "mask": torch.arange(T, device=dev).expand(B, T) < 10}
+
+    def micro_step():
+        state.micro_step = 1  # no optimizer step in this window
+        step(state, augment(raw, gen))
+
+    def optimizer_step():
+        state.optimizer.step(state.opt_step)
+        state.ema.update(state.model)
+    for _ in range(3):  # warm-up: cuDNN's choices, the caching allocator
+        micro_step()
+    optimizer_step()
+    label = {"card": card, "model": "yolov5l_fuse3_fourier", "batch": B,
+             "img": S, "dtype": "bfloat16 autocast",
+             "aux_mode": "reference"}
+    micro_step()  # gradients to step on
+    profiled(torch, micro_step, {**label, "window": "one micro-step "
+                                 "(augment, forward, loss, backward)"})
+    profiled(torch, optimizer_step, {**label, "window": "one optimizer "
+                                     "step (SGD, 3 groups) + EMA update"})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -429,6 +547,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["k2"]:
         k2_phases(torch, card)
+        return 0
+    if sys.argv[1:] == ["train"]:
+        train_breakdown(torch, card)
         return 0
     gemm_tiles(torch, card)
     k3_phases(torch, card)

@@ -62,20 +62,35 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      ``condition``) through the kernels, through their plain versions and
      through the unfused modules, each route's launches asserted, against
      three gates; then the val CLI once, where ``yaml`` imports;
-  12. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
+  12. ``train_path``: ``train`` as a user runs it, on the eval path's 64
+     square pairs as train and val set: the flagship at full width and
+     depth, 640 px, batch 8 (accumulate 8 to nbs 64), aux losses as the
+     reference, CEM on, bf16 autocast, basic augmentation with the default
+     hyps, 2 epochs (16 micro-steps, 2 optimizer steps, 2 evaluations of
+     the EMA); each micro-step timed (synchronised), the optimizer and EMA
+     steps apart, peak memory, the losses per epoch; no kernel launched by
+     the train steps; each evaluation run twice on its batches, first with
+     every K1 and K2 call held against its plain version, then counted
+     from 0 (K1 four times and K2's large form once a batch); the best
+     checkpoint through ``cli.val.main``; then ``train_f32_gate``: two f32
+     train steps of the flagship at 128 px, batch 2, on the card against
+     the CPU from the same weights and batch (autocast and TF32 off,
+     dropout p = 0): the loss terms, and the changes of the parameters, BN
+     buffers and EMA;
+  13. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
      version, with kernel, plain, cuDNN and bound times, TFLOP/s, the
      persistent grid (blocks, tiles, shared memory a block) and ptxas's
      registers and spills;
-  13. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
+  14. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
      and ``probe_cem_fb``, each body against its plain version, timed
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  14. the ``kernels`` summary line, the card line, and the final
+  15. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-13) runs with every launch count set to 0 just before it and
+Every path (8-14) runs with every launch count set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
@@ -122,6 +137,11 @@ K4_TOL = 0.02
 # ``plain_spread``, in every run).  Twice that spread: 5%.  A fault in the
 # pooling windows or the interpolation moves values by their own size.
 K4_EVAL_TOL = 0.05
+# K1 on the trainer's evaluation (the EMA of a few steps from the seeded
+# init, K1 at every fusion level): the same situation as K4's layers on
+# the eval path, so the same gate; the plain version's own CPU-card spread
+# is measured beside it in every run (``plain_spread``)
+K1_EVAL_TOL = K4_EVAL_TOL
 SPREAD_IMAGES = 4
 # the layer GEMM alone: sums in another order flip single bf16 roundings
 # (2^-8 of a value), nothing compounds: 1e-2 of max |plain|
@@ -1076,21 +1096,24 @@ def plain_versions(torch):
 
 @contextlib.contextmanager
 def checked_kernels(torch, checks: list, paths: list):
-    """The flagship's kernels (K3, K4, K2) each held against its plain
-    version call by call, on the inputs the path gives it: K3 and K4 by
-    max |kernel - plain| against ``K3_TOL`` / ``K4_EVAL_TOL`` of max
-    |plain|, K2 by identical indices; one record a call into ``checks``
-    (K4's with the plain version's own spread) and K2's
+    """The kernels of the evaluation paths (K3, K4, K2, and K1 on the
+    trainer's) each held against its plain version call by call, on the
+    inputs the path gives it: K3, K4 and K1 by max |kernel - plain|
+    against ``K3_TOL`` / ``K4_EVAL_TOL`` / ``K1_EVAL_TOL`` of max |plain|,
+    K2 by identical indices; one record a call into ``checks``
+    (K4's and K1's with the plain version's own spread) and K2's
     path per image (``nms_greedy(stats=)``) into ``paths``.  The plain
     versions and the stats read sit in the caller's time: for a run that
     is not timed."""
     import functools
     from unittest import mock
 
-    from mmidet_tpu_torch.nn import cem_cuda, fusion, fusion_cuda
+    from mmidet_tpu_torch.nn import (cem_cuda, fusion, fusion_cuda,
+                                     transformer_cuda)
     from mmidet_tpu_torch.ops import nms as nms_mod
     from mmidet_tpu_torch.ops import nms_cuda
     merge_kernel, cem_kernel = fusion.fused_gpt_merge, cem_cuda.fused_cem
+    tt_kernel = fusion.fused_token_transformer
 
     def record(name, shape, outs, refs, tol):
         err = max(float((o.float() - r.float()).abs().max())
@@ -1105,18 +1128,10 @@ def checked_kernels(torch, checks: list, paths: list):
             return {k: cpu(v) for k, v in x.items()}
         return x.cpu() if torch.is_tensor(x) else x
 
-    def merge(rgb, ir, stacked, *args, **kw):
-        out = merge_kernel(rgb, ir, stacked, *args, **kw)
-        plain = fusion_cuda.fused_gpt_merge_reference(
-            rgb, ir, unprepared(stacked), *args, **kw)
-        record("fused_gpt_merge", rgb.shape, out, plain, K4_EVAL_TOL)
-        # the plain version's own spread: on the CPU (sums in another
-        # order) against the card, on the call's first images, beside the
-        # kernel's error on the same images
-        n = min(SPREAD_IMAGES, rgb.shape[0])
-        on_cpu = fusion_cuda.fused_gpt_merge_reference(
-            rgb[:n].cpu(), ir[:n].cpu(), cpu(unprepared(stacked)),
-            *(cpu(a) for a in args), **kw)
+    def spread(on_cpu, plain, out, n):
+        """The plain version's own spread: on the CPU (sums in another
+        order) against the card, on the call's first ``n`` images, beside
+        the kernel's error on the same images."""
         top = checks[-1]["max_abs_ref"]
         checks[-1]["plain_spread"] = max(
             float((c.float() - p[:n].float().cpu()).abs().max())
@@ -1124,6 +1139,16 @@ def checked_kernels(torch, checks: list, paths: list):
         checks[-1]["err_same_images"] = max(
             float((o[:n].float() - p[:n].float()).abs().max())
             for o, p in zip(out, plain)) / top
+
+    def merge(rgb, ir, stacked, *args, **kw):
+        out = merge_kernel(rgb, ir, stacked, *args, **kw)
+        plain = fusion_cuda.fused_gpt_merge_reference(
+            rgb, ir, unprepared(stacked), *args, **kw)
+        record("fused_gpt_merge", rgb.shape, out, plain, K4_EVAL_TOL)
+        n = min(SPREAD_IMAGES, rgb.shape[0])
+        spread(fusion_cuda.fused_gpt_merge_reference(
+            rgb[:n].cpu(), ir[:n].cpu(), cpu(unprepared(stacked)),
+            *(cpu(a) for a in args), **kw), plain, out, n)
         return out
 
     # K3's wrapper counts its launches on the name it is bound to, which
@@ -1134,6 +1159,18 @@ def checked_kernels(torch, checks: list, paths: list):
         record("fused_cem", x.shape, (out,),
                (cem_cuda.fused_cem_reference(x, *params),),
                K3_TOL[str(x.dtype).split(".")[-1]])
+        return out
+
+    def tt(x, stacked, num_heads=8):
+        out = tt_kernel(x, stacked, num_heads)
+        plain = transformer_cuda.fused_token_transformer_reference(
+            x, unprepared(stacked), num_heads)
+        record("fused_token_transformer", x.shape, (out,), (plain,),
+               K1_EVAL_TOL)
+        n = min(SPREAD_IMAGES, x.shape[0])
+        spread((transformer_cuda.fused_token_transformer_reference(
+            x[:n].cpu(), cpu(unprepared(stacked)), num_heads),), (plain,),
+            (out,), n)
         return out
 
     def nms(boxes, scores, iou_thres, max_det):
@@ -1150,6 +1187,7 @@ def checked_kernels(torch, checks: list, paths: list):
         return idx, valid
     with mock.patch.object(fusion, "fused_gpt_merge", merge), \
             mock.patch.object(cem_cuda, "fused_cem", cem), \
+            mock.patch.object(fusion, "fused_token_transformer", tt), \
             mock.patch.object(nms_mod, "nms_greedy", nms):
         yield
 
@@ -1433,8 +1471,311 @@ def phase_eval_path(torch, dev, card: str, data_seconds: float):
         cli["matplotlib"] = False
     emit({**cli, "data_seconds": data_seconds,
           "phase_seconds": time.perf_counter() - t_phase})
-    shutil.rmtree(EVAL_DATA, ignore_errors=True)
     return runs, gates, cli
+
+
+def train_path_config(workdir: Path, epochs: int = 2):
+    """The train path's run: the flagship at full width and depth, 640 px,
+    batch 8 (accumulate 8 to nbs 64), aux losses as the reference, CEM on,
+    bf16 autocast, basic augmentation with the default hyps, on the eval
+    path's 64 square pairs as train and val set."""
+    from mmidet_tpu_torch.train.trainer import TrainConfig
+    return TrainConfig(
+        model="yolov5l_fuse3_fourier",
+        data=str(EVAL_DATA / "square" / "synthetic.yaml"), epochs=epochs,
+        batch_size=8, img_size=640, workdir=str(workdir), mosaic_prob=0.0,
+        aux_mode="reference", use_cem=True, dtype="bfloat16", seed=0,
+        exist_ok=True)
+
+
+def phase_train_path(torch, dev, card: str):
+    """``train`` on the card (see the module docstring, step 12), its
+    steps timed, its per-epoch evaluations checked and counted, and its
+    best checkpoint through the val CLI."""
+    from unittest import mock
+
+    from mmidet_tpu_torch.cli import val as val_cli
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+    from mmidet_tpu_torch.train.checkpoint import checkpoints
+    from mmidet_tpu_torch.train.ema import ModelEMA
+    from mmidet_tpu_torch.train.optimizer import GroupedOptimizer
+
+    t_phase = time.perf_counter()
+    workdir = EVAL_DATA / "train_run"
+    cfg = train_path_config(workdir)
+    step_ms, opt_ms, evals, initial = [], [], [], {}
+    real_make = trainer_mod.make_train_step
+    real_opt, real_ema = GroupedOptimizer.step, ModelEMA.update
+    real_eval = trainer_mod.evaluate
+
+    def make_timed(*a, **kw):
+        inner = real_make(*a, **kw)
+
+        def step(state, batch):
+            if not initial:  # the EMA's weights before the first step
+                initial.update({k: v.detach().clone() for k, v in
+                                state.ema.state_dict().items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return step
+
+    def timed_opt(self, opt_step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_opt(self, opt_step)
+        torch.cuda.synchronize()
+        opt_ms.append([(time.perf_counter() - t0) * 1e3])
+
+    def timed_ema(self, model):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_ema(self, model)
+        torch.cuda.synchronize()
+        opt_ms[-1].append((time.perf_counter() - t0) * 1e3)
+
+    def counted_eval(model, loader, nc, **kw):
+        # the train steps since the last evaluation launched no kernel
+        during_steps = read_counts()
+        if any(during_steps.values()):
+            raise AssertionError(f"train_path: the train steps launched "
+                                 f"kernels: {during_steps}")
+        batches = list(loader)
+        nb = len(batches)
+        # untimed: every K1 and K2 call against its plain version
+        checks, paths = [], []
+        with checked_kernels(torch, checks, paths):
+            real_eval(model, batches, nc, **kw)
+        checked = check_summary(checks)
+        calls = {k: v["calls"] for k, v in checked.items()}
+        if not all(v["ok"] for v in checked.values()) or calls != {
+                "fused_token_transformer": 4 * nb, "nms_greedy": nb}:
+            raise AssertionError(f"train_path eval: a kernel disagrees with "
+                                 f"its plain version or was not checked on "
+                                 f"every call: {checked}")
+        # timed, as the trainer runs it: launches counted from 0
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = real_eval(model, batches, nc, **kw)
+        secs = time.perf_counter() - t0
+        launches = read_counts(fused_token_transformer=4 * nb,
+                               nms_greedy=nb, nms_greedy_large=nb)
+        zero_counts()
+        evals.append({"batches": nb, "launches": launches,
+                      "checked": checked,
+                      "k2_paths": {p: paths.count(p)
+                                   for p in sorted(set(paths))},
+                      "speed_ms": res.speed_ms[0], "seconds": secs,
+                      "dtype": str(next(model.parameters()).dtype),
+                      "P": res.mp, "R": res.mr, "mAP50": res.map50})
+        return res
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer_mod, "make_train_step", make_timed), \
+            mock.patch.object(trainer_mod, "evaluate", counted_eval), \
+            mock.patch.object(GroupedOptimizer, "step", timed_opt), \
+            mock.patch.object(ModelEMA, "update", timed_ema):
+        out = trainer_mod.train(cfg, device=dev)
+    train_seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    after = read_counts()
+    if any(after.values()):
+        raise AssertionError(f"train_path: kernels launched after the last "
+                             f"evaluation: {after}")
+    state = out["state"]
+    ema_sd = state.ema.state_dict()
+    ema_moved = max(float((ema_sd[k].float() - v.float()).abs().max())
+                    for k, v in initial.items() if v.is_floating_point())
+    losses = [{k: e[k] for k in ("epoch", "box", "obj", "cls", "aux")}
+              for e in out["epochs"]]
+    finite = all(math.isfinite(e[k]) for e in losses
+                 for k in ("box", "obj", "cls", "aux"))
+    after_first = step_ms[1:]
+    micro = statistics.median(after_first)
+    # images over each epoch's loop (loader, augmentation, copies to the
+    # card, steps; the step timer's synchronisations included), the first
+    # epoch's with cuDNN's first calls; the steps' own rate beside it
+    loop_img_per_s = [e["batches"] * cfg.batch_size / e["seconds"]
+                      for e in out["epochs"]]
+    best = checkpoints(str(workdir / "ckpt_best"))
+    rec = {"phase": "train_path", "model": "yolov5l_fuse3_fourier",
+           "card": card, "img": 640, "batch": 8, "dtype": "bfloat16",
+           "aux_mode": "reference", "epochs": len(out["epochs"]),
+           "micro_steps": len(step_ms), "optimizer_steps": len(opt_ms),
+           "accumulate": state.optimizer.accumulate,
+           "micro_step_ms": micro, "micro_step_ms_first": step_ms[0],
+           "micro_step_ms_all": step_ms,
+           "train_img_per_s": loop_img_per_s[-1],
+           "loop_img_per_s_by_epoch": loop_img_per_s,
+           "step_img_per_s": cfg.batch_size * 1e3 / micro,
+           "optimizer_step_ms": [sum(x) for x in opt_ms],
+           "optimizer_ms_split": opt_ms, "peak_mem_gb": peak,
+           "losses": losses, "ema_max_change": ema_moved,
+           "ema_updates": state.ema.updates, "evals": evals,
+           "train_seconds": train_seconds, "best": best[-1:]}
+    emit(rec)
+    if not finite or ema_moved <= 0 or len(evals) != cfg.epochs or \
+            len(opt_ms) != len(step_ms) // state.optimizer.accumulate or \
+            not best:
+        raise AssertionError(f"train_path: losses finite {finite}, EMA "
+                             f"moved {ema_moved}, {len(evals)} evaluations, "
+                             f"{len(opt_ms)} optimizer steps, best {best}")
+
+    # the run's best checkpoint through the val CLI
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    zero_counts()
+    with contextlib.redirect_stdout(buf):
+        val_cli.main(["--cfg", "yolov5l_fuse3_fourier", "--data",
+                      cfg.data, "--weights", best[-1], "--batch-size", "32",
+                      "--img-size", "640"], device=dev)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    cli = {"phase": "train_path_val_cli", "weights": best[-1],
+           "seconds": time.perf_counter() - t0, "json": line,
+           "launches": read_counts(),
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(cli)
+    if set(line) != {"P", "R", "mAP50", "mAP75", "mAP", "speed_ms"} or \
+            not all(math.isfinite(v) for v in line.values()):
+        raise AssertionError(f"train_path: the val CLI on the best "
+                             f"checkpoint: {line}")
+    rec["val_cli"] = cli
+    return rec
+
+
+# f32 train steps, card against CPU: the same weights and batch, autocast
+# and TF32 off, dropout p = 0, 2 optimizer steps at lr 1e-3 (the weights'
+# warmup lr 0, then lr0; the biases at 1e-3 both times).  Sums run in
+# another order on the card (cuDNN's algorithms, the reductions), and
+# BatchNorm on batch 2 normalises P5's 4x4 maps over 32 values: its
+# backward subtracts means of large terms, so some P5 gradients carry a
+# few % of rounding.  At the default lr (0.01, biases warming up from 0.1)
+# the seeded model's dynamics also amplify the rounding: the second
+# step's losses sat 7.2e-5 (this gate's model and batch) and 2.6e-4 (the
+# card test's) apart.  Gates, with an H100's readings at lr 1e-3 (PR 12):
+# each loss term within TRAIN_F32_LOSS_TOL of its size (read 6.8e-6 on
+# step 1, 3.3e-5 on step 2: 3x); per tensor (parameters, BN buffers, EMA
+# entries that changed by more than 1e-6) the card's change within
+# TRAIN_F32_TOL of the CPU's largest change of that tensor (read 0.089 at
+# worst, a P5 conv's weight, BN buffers 2.7e-4: 3.4x).  Both sides run the
+# port's code, so this gate finds only where the card's run leaves the
+# CPU's; the update itself is held against the JAX package on the CPU
+# (tests/test_torch_port_train.py, test_torch_port_resume.py)
+TRAIN_F32_LOSS_TOL = 1e-4
+TRAIN_F32_TOL = 0.3
+
+
+def train_steps_f32(torch, model, batch, steps: int):
+    """``steps`` micro-steps of the port's train step in f32 (accumulate 1,
+    the schedule's first steps at lr0 1e-3: lr 0 then lr0 for the
+    weights)."""
+    from mmidet_tpu_torch.losses.detection import LossHyp
+    from mmidet_tpu_torch.train.optimizer import build_optimizer
+    from mmidet_tpu_torch.train.schedule import ScheduleConfig
+    from mmidet_tpu_torch.train.step import init_state, make_train_step
+    from mmidet_tpu_torch.train.trainer import anchors_grid
+    sched = ScheduleConfig(epochs=2, steps_per_epoch=2, warmup_epochs=0.0,
+                           warmup_floor=1, lr0=1e-3, warmup_bias_lr=1e-3)
+    opt, _ = build_optimizer(model, sched, 0.0005, total_batch_size=2,
+                             nbs=2)
+    state = init_state(model, opt)
+    step = make_train_step(anchors_grid(model.spec), LossHyp(),
+                           dtype="float32")
+    dev = next(model.parameters()).device
+    metrics = [step(state, {k: v.to(dev) for k, v in batch.items()})
+               for _ in range(steps)]
+    return state, [{k: float(v) for k, v in m.items()} for m in metrics]
+
+
+def phase_train_f32_gate(torch, dev, card: str):
+    """Two f32 train steps of the flagship at 128 px, batch 2, on the card
+    and on the CPU from the same weights and batch."""
+    import copy
+
+    import numpy as np
+
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    cpu = TwoStreamDetector(get_model_spec("yolov5l_fuse3_fourier", nc=2),
+                            aux_mode="reference")
+    for m in cpu.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    card_model = copy.deepcopy(cpu).to(dev)
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.default_rng(0)
+    targets = np.zeros((2, 4, 5), np.float32)
+    targets[:, :3] = [[1, 0.5, 0.5, 0.3, 0.4], [0, 0.25, 0.3, 0.1, 0.15],
+                      [1, 0.7, 0.6, 0.2, 0.1]]
+    batch = {"rgb": torch.from_numpy(
+                 rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)),
+             "ir": torch.from_numpy(
+                 rng.uniform(0, 1, (2, 128, 128, 3)).astype(np.float32)),
+             "targets": torch.from_numpy(targets),
+             "mask": torch.from_numpy(np.arange(4)[None].repeat(2, 0) < 3)}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        s_card, m_card = train_steps_f32(torch, card_model, batch, 2)
+        s_cpu, m_cpu = train_steps_f32(torch, cpu, batch, 2)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    loss_err = [max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                    for k in ("box", "obj", "cls", "aux", "total"))
+                for a, b in zip(m_card, m_cpu)]
+
+    def shares(got: dict, want: dict, base: dict):
+        """Per tensor max |card change - CPU change| / max |CPU change|,
+        over tensors whose CPU change exceeds 1e-6."""
+        out = {}
+        for k, w in want.items():
+            if not w.is_floating_point():
+                continue
+            dw = w.detach().float() - base[k].float()
+            top = float(dw.abs().max())
+            if top > 1e-6:
+                dg = got[k].detach().float().cpu() - base[k].float()
+                out[k] = float((dg - dw).abs().max()) / top
+        return out
+    groups = {
+        "params": shares(dict(s_card.model.named_parameters()),
+                         dict(s_cpu.model.named_parameters()), before),
+        "bn_buffers": shares(
+            {k: v for k, v in s_card.model.state_dict().items()
+             if "running" in k},
+            {k: v for k, v in s_cpu.model.state_dict().items()
+             if "running" in k}, before),
+        "ema": shares(s_card.ema.state_dict(), s_cpu.ema.state_dict(),
+                      before)}
+    worst = {g: (max(v.values()) if v else 0.0, len(v))
+             for g, v in groups.items()}
+    worst_key = {g: max(v, key=v.get) if v else None
+                 for g, v in groups.items()}
+    rec = {"phase": "train_f32_gate", "card": card, "img": 128, "batch": 2,
+           "steps": 2, "losses_card": m_card, "losses_cpu": m_cpu,
+           "loss_max_rel_err_by_step": loss_err,
+           "loss_tol": TRAIN_F32_LOSS_TOL,
+           "max_share_and_tensors": worst, "worst_tensor": worst_key,
+           "tol": TRAIN_F32_TOL, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if max(loss_err) > TRAIN_F32_LOSS_TOL or \
+            any(w > TRAIN_F32_TOL for w, _ in worst.values()) or \
+            not all(n for _, n in worst.values()):
+        raise AssertionError(f"train_f32_gate: the card's train steps "
+                             f"disagree with the CPU's: {rec}")
+    return rec
 
 
 def phase_p1(torch, dev):
@@ -1496,6 +1837,7 @@ def majority_bound(recs):
 
 
 def main() -> int:
+    import shutil
     import threading
 
     import torch
@@ -1550,6 +1892,9 @@ def main() -> int:
     eval_nms = phase_eval_nms(torch, pred)
     del pred
     phase_eval_path(torch, dev, name, data["seconds"])
+    train = phase_train_path(torch, dev, name)
+    phase_train_f32_gate(torch, dev, name)
+    shutil.rmtree(EVAL_DATA, ignore_errors=True)
     p1, p1_launches = phase_p1(torch, dev)
     p2, p3, probe_launches = phase_p2_p3(torch, dev)
 
@@ -1562,6 +1907,9 @@ def main() -> int:
          "source": "mmidet_tpu_torch/csrc/token_transformer.cu",
          "replaces": "mmidet_tpu/nn/transformer_pallas.py:218",
          "launches": first["fused_token_transformer"],
+         # the trainer's per-epoch evaluation: 4 a batch, every epoch
+         "train_eval_launches": sum(e["launches"]["fused_token_transformer"]
+                                    for e in train["evals"]),
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": summed(k1_path, "ms"), "plain_ms": summed(k1_path, "plain_ms"),
          "bound_ms": summed(k1_path, "bound_ms"),
@@ -1599,6 +1947,8 @@ def main() -> int:
          "source": "mmidet_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "mmidet_tpu/ops/nms_pallas.py:82",
          "launches": eval_nms["nms_greedy_large"],
+         "train_eval_launches": sum(e["launches"]["nms_greedy_large"]
+                                    for e in train["evals"]),
          "max_abs_err": k2_large["max_abs_err"], "ms": k2_large["ms"],
          "plain_ms": k2_large["plain_ms"], "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"], "library_ms": None},

@@ -21,6 +21,7 @@ from mmidet_tpu_torch.eval.metrics import (ConfusionMatrix, ap_per_class,
                                            coco80_to_coco91_class,
                                            match_predictions)
 from mmidet_tpu_torch.models.tta import forward_tta
+from mmidet_tpu_torch.ops.boxes import scale_coords
 from mmidet_tpu_torch.ops.nms import non_max_suppression
 
 
@@ -40,15 +41,12 @@ class EvalResults:
 
 
 def _scale_boxes(boxes: np.ndarray, ratio_pad, orig_shape) -> np.ndarray:
-    """Letterboxed xyxy -> original-image coordinates (ref scale_coords)."""
-    r, (dw, dh) = ratio_pad
-    out = boxes.copy()
-    out[:, [0, 2]] = (out[:, [0, 2]] - dw) / r
-    out[:, [1, 3]] = (out[:, [1, 3]] - dh) / r
-    h, w = orig_shape
-    out[:, [0, 2]] = out[:, [0, 2]].clip(0, w)
-    out[:, [1, 3]] = out[:, [1, 3]].clip(0, h)
-    return out
+    """Letterboxed xyxy -> original-image coordinates
+    (``ops.boxes.scale_coords``); ``ratio_pad`` is the loaders'
+    (gain, (padw, padh))."""
+    r, pad = ratio_pad
+    return scale_coords(None, torch.from_numpy(boxes), orig_shape,
+                        ((r, r), pad)).numpy()
 
 
 def eval_device(device) -> torch.device:

@@ -9,6 +9,9 @@ per-image TP assignment loop in ``test.py:198-231``.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from mmidet_tpu_torch.ops.boxes import box_iou
 
 
 def fitness(metrics4: np.ndarray) -> np.ndarray:
@@ -66,13 +69,10 @@ def ap_per_class(tp: np.ndarray, conf: np.ndarray, pred_cls: np.ndarray,
 
 
 def box_iou_np(a: np.ndarray, b: np.ndarray, eps: float = 1e-7) -> np.ndarray:
-    """(N,4) x (M,4) xyxy -> (N,M) IoU, numpy."""
-    area_a = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1])
-    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
-    lt = np.maximum(a[:, None, :2], b[None, :, :2])
-    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
-    inter = np.prod(np.clip(rb - lt, 0, None), axis=-1)
-    return inter / (area_a[:, None] + area_b[None, :] - inter + eps)
+    """(N,4) x (M,4) xyxy -> (N,M) IoU on numpy arrays
+    (``ops.boxes.box_iou``)."""
+    return box_iou(torch.from_numpy(np.asarray(a)),
+                   torch.from_numpy(np.asarray(b)), eps).numpy()
 
 
 def match_predictions(pred: np.ndarray, labels: np.ndarray,

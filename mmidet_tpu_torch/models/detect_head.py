@@ -32,14 +32,17 @@ class Detect(nn.Module):
                 b[:, 4] += math.log(8 / (640 / s) ** 2)
                 b[:, 5:] += math.log(0.6 / (nc - 0.99))
 
-    def forward(self, xs):
-        """xs: per-level NCHW maps. Returns (train_outs, pred)."""
+    def forward(self, xs, decode: bool = True):
+        """xs: per-level NCHW maps. Returns (train_outs, pred); pred is None
+        without ``decode``."""
         train_outs, decoded = [], []
         for i, x in enumerate(xs):
             b, _, ny, nx = x.shape
             y = self.m[i](x).view(b, self.na, self.no, ny, nx)
             y = y.permute(0, 1, 3, 4, 2)
             train_outs.append(y)
+            if not decode:
+                continue
             dt = y.dtype
             gy, gx = torch.meshgrid(
                 torch.arange(ny, device=y.device, dtype=dt),
@@ -51,4 +54,4 @@ class Detect(nn.Module):
             wh = torch.square(z[..., 2:4] * 2.0) * anchor
             z = torch.cat([xy, wh, z[..., 4:]], -1)
             decoded.append(z.reshape(b, -1, self.no))
-        return train_outs, torch.cat(decoded, 1)
+        return train_outs, torch.cat(decoded, 1) if decode else None

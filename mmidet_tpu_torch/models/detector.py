@@ -1,10 +1,25 @@
 """The two-stream (visible + infrared) detection model, in PyTorch.
 
-Counterpart of ``mmidet_tpu/models/detector.py:TwoStreamDetector`` for the
-inference path (``aux_mode="off"``); reference ``Model`` / ``forward_once``
-(``models/yolo_test.py:77-276``).  The layer graph is the ``ModelSpec``,
-executed as a DAG: the ``-4`` route feeds the IR image to the second
-stream.  Modules sit at ``model.{i}`` (parameter-free layers hold an
+Counterpart of ``mmidet_tpu/models/detector.py:TwoStreamDetector``;
+reference ``Model`` / ``forward_once`` (``models/yolo_test.py:77-276``).
+The layer graph is the ``ModelSpec``, executed as a DAG: the ``-4`` route
+feeds the IR image to the second stream.  ``model.train()`` is the JAX
+package's ``train=True``: BatchNorm on batch statistics, dropout in the
+fusion transformers, no decode.
+
+The Info-Guided auxiliary losses come back in ``out["aux"]``, as the JAX
+package computes them (``detector.py:185-262``): ``aux_mode="reference"``
+is the reference's effective loss surface (its ``Combine_loss`` is
+overwritten with the SSIM term, ``yolo_test.py:266``), ``"full"`` the
+a1..a4 weighted sum the code intended, ``"off"`` none (inference):
+  * ``contrastive`` around GPT1_fourier's inputs only;
+  * ``pattern``, the separation loss of GPT1 and GPT1_fourier;
+  * ``ssim`` (``fusing_loss``) on GPT1_fourier's inputs and ``(r + i) / 2``;
+  * ``entropy`` in ``"full"`` mode only;
+  * ``combine``: ``ssim`` in ``"reference"`` mode, the ``AUX_WEIGHTS`` sum
+    in ``"full"``.
+
+Modules sit at ``model.{i}`` (parameter-free layers hold an
 ``nn.Identity``) and the CEM at ``Enhance``, the reference's state-dict
 names.
 
@@ -21,6 +36,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from mmidet_tpu_torch.losses import fusion as fusion_losses
 from mmidet_tpu_torch.models.detect_head import Detect
 from mmidet_tpu_torch.models.spec import SECOND_INPUT, ModelSpec, resolve
 from mmidet_tpu_torch.nn import layers as L
@@ -29,6 +45,7 @@ from mmidet_tpu_torch.nn.fusion import (CrossModalTransformer,
                                         FourierPatternFusion, PatternFusion)
 from mmidet_tpu_torch.nn.resize import nearest_upsample
 
+AUX_WEIGHTS = (0.1, 1.0, 0.06, 0.03)  # a1..a4, yolo_test.py:170-178
 _PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample", "nn.Upsample"}
 _FUSION = {"GPT": CrossModalTransformer, "GPT1": PatternFusion,
            "GPT1_fourier": FourierPatternFusion}
@@ -41,7 +58,10 @@ def _nhwc(t):
 
 
 class TwoStreamDetector(nn.Module):
-    """``use_cem``: the CEM front end on the RGB input (without it the
+    """``aux_mode``: ``"reference"``, ``"full"`` or ``"off"`` (see the
+    module docstring); with the aux losses on, the GPT1 levels run
+    unmerged (the merge kernel returns no pattern loss).
+    ``use_cem``: the CEM front end on the RGB input (without it the
     module has no ``Enhance`` submodule).
     ``fused``: BN folded into the convs (deploy form).
     ``kernel_fusion``: the fusion transformers run the fused token
@@ -60,9 +80,10 @@ class TwoStreamDetector(nn.Module):
                  kernel_merge: bool = False,
                  truncate_at: int | None = None):
         super().__init__()
-        if aux_mode != "off":
-            raise NotImplementedError(
-                f"aux_mode={aux_mode!r}: only the inference path is ported")
+        if aux_mode not in ("off", "reference", "full"):
+            raise ValueError(f"aux_mode={aux_mode!r}: 'off', 'reference' "
+                             "or 'full'")
+        self.aux_mode = aux_mode
         self.spec = spec
         self.truncate_at = truncate_at
         self.resolved, self.save = resolve(spec)
@@ -90,11 +111,15 @@ class TwoStreamDetector(nn.Module):
             elif m == "SPP":
                 mod = L.SPP(c1, a[0], *a[1:], fused=fused)
             elif m in _FUSION:
-                # the inference path drops GPT1*'s pattern loss: not computed
-                extra = {} if m == "GPT" else {"with_loss": False}
+                # GPT1*'s pattern loss is computed only for the aux losses,
+                # which also need the unmerged outputs
+                extra = {} if m == "GPT" else {
+                    "with_loss": aux_mode != "off"}
                 mod = _FUSION[m](a[0], n_layer=spec.fusion_layers,
                                  use_kernel=kernel_fusion,
-                                 merge_kernel=kernel_merge, **extra)
+                                 merge_kernel=kernel_merge and (
+                                     m == "GPT" or aux_mode == "off"),
+                                 **extra)
             elif m == "Detect":
                 mod = Detect(a[0], a[1], a[2], spec.strides)
             elif m in _PARAMETER_FREE:
@@ -107,6 +132,10 @@ class TwoStreamDetector(nn.Module):
         self.model = nn.ModuleList(mods)
 
     def forward(self, rgb: torch.Tensor, ir: torch.Tensor | None = None):
+        """rgb/ir: NHWC images in [0, 1].  Returns ``train_outs`` per level
+        (B, na, ny, nx, no), ``pred`` decoded (B, N, no) when not training
+        (else None) and the ``aux`` loss dict."""
+        aux: dict[str, torch.Tensor] = {}
         dt = next(self.parameters()).dtype
         x = rgb.permute(0, 3, 1, 2).to(dt)
         if self.use_cem:
@@ -143,12 +172,35 @@ class TwoStreamDetector(nn.Module):
                     raise NotImplementedError(f"Upsample mode {rl.args[2]!r}")
                 x = nearest_upsample(inp, int(rl.args[1]))
             elif m in _FUSION:
-                x = list(mod(inp[0], inp[1])[:2])  # GPT1*: drop pattern loss
+                fourier = m == "GPT1_fourier"
+                if self.aux_mode != "off" and fourier:
+                    aux["contrastive"] = fusion_losses.contrastive_loss(
+                        inp[0], inp[1])
+                out = mod(inp[0], inp[1])
+                x = list(out[:2])
                 if mod.merge_kernel and not mod.training:
                     premerged.add(rl.index)
+                if self.aux_mode != "off" and m != "GPT":
+                    aux["pattern"] = out[2]
+                    if fourier:
+                        fused = (x[0] + x[1]) / 2.0
+                        aux["ssim"] = fusion_losses.fusing_loss(
+                            inp[0], inp[1], fused, fused)
+                        if self.aux_mode == "full":
+                            aux["entropy"] = fusion_losses.entropy_loss(
+                                inp[0], inp[1], fused)
             elif m == "Detect":
-                train_outs, pred = mod(inp)
-                return {"train_outs": train_outs, "pred": pred}
+                train_outs, pred = mod(inp, decode=not self.training)
+                if "ssim" in aux:  # Combine loss (yolo_test.py:263-268)
+                    if self.aux_mode == "full":
+                        a1, a2, a3, a4 = AUX_WEIGHTS
+                        aux["combine"] = (a1 * aux["contrastive"]
+                                          + a2 * aux["ssim"]
+                                          + a3 * aux["pattern"]
+                                          + a4 * aux["entropy"])
+                    else:
+                        aux["combine"] = aux["ssim"]
+                return {"train_outs": train_outs, "pred": pred, "aux": aux}
             else:
                 x = mod(inp)
             if rl.index in self.save:

@@ -13,8 +13,12 @@ Attribute names are the reference's (``pos_emb``, ``trans_blocks.{j}``,
 ``sa.que_proj``, ``mlp.0``/``mlp.2``, ``ln_f``, and the pattern gate's
 ``conv1``/``conv2`` directly on the fusion module), so the state dict lines
 up with the reference checkpoint and with the JAX variables (whose
-``trans`` and ``pattern`` scopes are flat in the reference).  Dropout is
-not modelled: these modules serve the deploy path.  Tensors are NCHW.
+``trans`` and ``pattern`` scopes are flat in the reference).  Dropout sits
+where the reference and the JAX package put it (on the embedded tokens,
+the attention weights, the attention output and the MLP output, all 0.1)
+as ``nn.Dropout`` modules, so
+``.eval()`` turns it off and a test can set ``p = 0``; ``.train()`` is the
+JAX package's ``train=True``.  Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from mmidet_tpu_torch.nn.transformer_cuda import (fused_token_transformer,
                                                   stack_block_params)
 
 LN_EPS = 1e-5  # torch LayerNorm default, as the reference
+DROP = 0.1     # embd_pdrop, attn_pdrop, resid_pdrop of the reference's GPT
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,15 +63,18 @@ def frequency_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """NCHW -> (low, high) real-valued frequency components: fft2 -> shift
     -> mask -> unshift -> ifft2 -> real, computed in f32.  The reference's
     ``.half()`` on a complex tensor drops the imaginary part, so the real
-    part is taken explicitly."""
+    part is taken explicitly.  ``torch.fft`` takes no bf16 at these sizes,
+    so under ``torch.autocast`` the transform runs with autocast off on
+    the f32 copy, and the parts come back in ``x``'s dtype."""
     high_keep, low_keep = (torch.from_numpy(m).to(x.device)
                            for m in _freq_masks(x.shape[2], x.shape[3]))
-    fs = torch.fft.fftshift(torch.fft.fft2(x.float()), dim=(-2, -1))
+    with torch.autocast(x.device.type, enabled=False):
+        fs = torch.fft.fftshift(torch.fft.fft2(x.float()), dim=(-2, -1))
 
-    def back(keep):
-        return torch.fft.ifft2(torch.fft.ifftshift(
-            fs * keep, dim=(-2, -1))).real.to(x.dtype)
-    return back(low_keep), back(high_keep)
+        def back(keep):
+            return torch.fft.ifft2(torch.fft.ifftshift(
+                fs * keep, dim=(-2, -1))).real.to(x.dtype)
+        return back(low_keep), back(high_keep)
 
 
 def separation_loss(m: torch.Tensor) -> torch.Tensor:
@@ -78,7 +86,8 @@ def separation_loss(m: torch.Tensor) -> torch.Tensor:
 
 
 class SelfAttention(nn.Module):
-    """Multi-head self-attention with explicit q/k/v/out projections.
+    """Multi-head self-attention with explicit q/k/v/out projections,
+    dropout on the attention weights and on the output.
     Ref: common.py:1147-1234."""
 
     def __init__(self, d_model: int, num_heads: int = 8):
@@ -88,6 +97,8 @@ class SelfAttention(nn.Module):
         self.key_proj = nn.Linear(d_model, d_model)
         self.val_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
+        self.attn_drop = nn.Dropout(DROP)
+        self.resid_drop = nn.Dropout(DROP)
 
     def forward(self, x):
         b, n, c = x.shape
@@ -97,11 +108,13 @@ class SelfAttention(nn.Module):
         v = self.val_proj(x).view(b, n, h, dk).transpose(1, 2)
         att = torch.softmax((q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(dk)),
                             -1)
-        return self.out_proj((att @ v).transpose(1, 2).reshape(b, n, c))
+        att = self.attn_drop(att)
+        return self.resid_drop(
+            self.out_proj((att @ v).transpose(1, 2).reshape(b, n, c)))
 
 
 class PreLNBlock(nn.Module):
-    """Pre-LN transformer block with exact-GELU MLP.
+    """Pre-LN transformer block with exact-GELU MLP, dropout after the MLP.
     Ref: myTransformerBlock, common.py:1237-1267."""
 
     def __init__(self, d_model: int, num_heads: int = 8, block_exp: int = 4):
@@ -111,7 +124,8 @@ class PreLNBlock(nn.Module):
         self.ln_output = nn.LayerNorm(d_model, eps=LN_EPS)
         self.mlp = nn.Sequential(nn.Linear(d_model, block_exp * d_model),
                                  nn.GELU(),
-                                 nn.Linear(block_exp * d_model, d_model))
+                                 nn.Linear(block_exp * d_model, d_model),
+                                 nn.Dropout(DROP))
 
     def forward(self, x):
         x = x + self.sa(self.ln_input(x))
@@ -144,6 +158,7 @@ class _TokenTransformer(nn.Module):
         self._stack, self._stack_key = None, None
         self.pos_emb = nn.Parameter(
             torch.zeros(1, 2 * grid[0] * grid[1], d_model))
+        self.drop = nn.Dropout(DROP)
         self.trans_blocks = nn.Sequential(*[
             PreLNBlock(d_model, num_heads, block_exp) for _ in range(n_layer)])
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -170,7 +185,7 @@ class _TokenTransformer(nn.Module):
         gh, gw = self.grid
         tok = torch.cat([rgb_p.flatten(2).transpose(1, 2),
                          ir_p.flatten(2).transpose(1, 2)], 1)
-        x = tok + self.pos_emb.to(tok.dtype)
+        x = self.drop(tok + self.pos_emb.to(tok.dtype))
         if self.use_kernel and not self.training:
             x = fused_token_transformer(
                 x.to(torch.bfloat16), self._stacked(x.device),

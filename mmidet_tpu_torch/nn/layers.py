@@ -1,8 +1,9 @@
 """YOLOv5-family building blocks in PyTorch (NCHW inside the modules).
 
 Counterpart of ``mmidet_tpu/nn/layers.py`` for the modules the two-stream
-deploy path runs: ``ConvBnAct``, ``Focus``, ``Bottleneck``, ``C3`` and
-``SPP`` (reference ``models/common.py:96-748``).  Attribute names follow the
+models run: ``ConvBnAct``, ``Focus``, ``Bottleneck``, ``C3`` and ``SPP``
+(reference ``models/common.py:96-748``), with the JAX package's train-mode
+BatchNorm (``BatchNorm2d``).  Attribute names follow the
 reference torch modules (``conv``/``bn``, ``cv1``..``cv3``, ``m``), so the
 state-dict keys are the reference's ``model.{i}.cv1.conv.weight`` and the
 JAX variables bridge onto them one to one (``mmidet_tpu_torch.bridge``).
@@ -48,8 +49,35 @@ def act_fn(name: str | None) -> Callable[[torch.Tensor], torch.Tensor]:
     return table[name]
 
 
-def batchnorm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """YOLOv5's BatchNorm (eps 1e-3, momentum 0.03) with the JAX package's
+    train-mode rule, which is flax's: normalise by the batch's biased
+    variance, and update ``running_mean`` and ``running_var`` with
+    momentum 0.03 (flax 0.97) from the batch mean and the **biased** batch
+    variance.  ``torch.nn.BatchNorm2d`` updates ``running_var`` with the
+    unbiased variance (n / (n - 1) larger, PARITY.md:257-266), so train
+    mode runs the native kernel without running buffers and the update is
+    done here from the batch statistics that kernel returns (mean and
+    inverse std, f32 under bf16 autocast).  Eval mode, the state-dict
+    names (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``) and ``fold_batchnorm`` are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            m = self.momentum  # flax: 0.97 * running + 0.03 * batch
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(
+                m * (invstd.pow(-2) - self.eps))
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batchnorm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBnAct(nn.Module):

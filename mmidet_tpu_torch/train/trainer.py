@@ -1,0 +1,482 @@
+"""Two-stream training driver on the card.
+
+Counterpart of ``mmidet_tpu/train/trainer.py``; reference
+``train.py:476-943``: model build, loaders, optimizer groups + warmup +
+cosine, EMA, per-epoch evaluation with fitness-driven best checkpoints,
+results logging, resume.  The loop is the JAX package's ``fused_loop=
+False`` order: for each loader batch, the augmentation (on the card, from
+a seeded ``torch.Generator``), then the train step.  Loss means are summed
+on the card and read once an epoch.
+
+The per-epoch evaluation follows the JAX trainer (:437-440, :710-724): a
+bf16 copy of the EMA model (when ``dtype="bfloat16"``) with
+``kernel_fusion=True``, the JAX package's ``pallas_fusion``: the fused
+token transformer (K1) at every fusion level, BN not folded; ``evaluate``
+runs its NMS through greedy NMS's large-pool form (K2, ``pre_nms_topk``
+30000).  ``best_fitness`` drives ``ckpt_best/``.
+
+``train(cfg, device="cuda")`` runs on the card; without CUDA it raises
+unless ``device="cpu"``.  Options of the JAX trainer that are not ported
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from mmidet_tpu_torch.data.augment import AugmentHyp, make_batch_augment
+from mmidet_tpu_torch.data.datasets import PairedDataset, load_data_yaml
+from mmidet_tpu_torch.data.loader import PairedLoader
+from mmidet_tpu_torch.eval.evaluator import eval_device, evaluate
+from mmidet_tpu_torch.eval.metrics import fitness
+from mmidet_tpu_torch.losses.detection import LossHyp
+from mmidet_tpu_torch.models.detector import TwoStreamDetector
+from mmidet_tpu_torch.models.spec import is_two_stream, load_yolo_yaml
+from mmidet_tpu_torch.models.zoo import get_model_spec
+from mmidet_tpu_torch.train.checkpoint import (checkpoints,
+                                               restore_checkpoint,
+                                               save_checkpoint,
+                                               strip_for_deploy)
+from mmidet_tpu_torch.train.optimizer import build_adam, build_optimizer
+from mmidet_tpu_torch.train.schedule import ScheduleConfig
+from mmidet_tpu_torch.train.step import init_state, make_train_step
+from mmidet_tpu_torch.utils.general import check_img_size, increment_path
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX package's ``TrainConfig`` but ``fused_loop`` (the port runs
+    the two-dispatch order) and the fields that only qualify options not
+    ported here (``tp_min_out``, ``multi_scale_buckets``,
+    ``artifact_project``).  Fields marked "not ported" raise when set away
+    from their default."""
+    model: str = "yolov5l_fuse3_fourier"   # zoo name or YAML path
+    mesh: str = "auto"   # 'auto': one device here; 'on': not ported (A13)
+    n_model: int = 1     # tensor parallelism: not ported (A13)
+    data: str = ""                         # dataset YAML path
+    hyp: str | dict = ""                   # hyp YAML path or dict
+    epochs: int = 100
+    batch_size: int = 8
+    img_size: int = 640
+    max_labels: int = 120
+    workdir: str = "runs/train/exp"
+    adam: bool = False
+    linear_lr: bool = False
+    mosaic_prob: float = 1.0               # > 0 with hyp mosaic > 0: A14
+    use_cem: bool = True
+    aux_mode: str = "reference"
+    dtype: str = "bfloat16"
+    ema_decay: float = 0.9999
+    eval_every: int = 1
+    seed: int = 0
+    resume: str = ""                        # run dir, ckpt dir or "latest"
+    optimizer_groups: str = "fixed"         # 'fixed' | 'reference'
+    autoanchor: bool = True                 # BPR check + kmeans refit
+    use_wandb: bool = False                 # not ported (A15)
+    warmup_floor: int = 1000                # reference's warmup iter floor
+    nbs: int = 64            # nominal batch size (ref train.py:564): sets
+    #                          gradient accumulation round(nbs / batch)
+    #                          and the weight-decay scale
+    remat: str = ""                         # not ported (A13)
+    weights: str = ""        # pretrained init: a .pt state dict (tolerant)
+    image_weights: bool = False             # not ported (A15)
+    single_cls: bool = False
+    multi_scale: bool = False               # not ported (A14)
+    rect: bool = False                      # not ported (A14)
+    notest: bool = False         # eval only on the final epoch
+    nosave: bool = False         # checkpoint only on the final epoch
+    save_period: int = -1        # extra checkpoint every N epochs
+    exist_ok: bool = False       # reuse workdir without incrementing
+    workers: int = 2             # loader prefetch depth (ref --workers)
+    freeze: tuple = ()           # parameter-name substrings to freeze
+    upload_dataset: bool = False            # not ported (A15)
+    log_artifacts: bool = False             # not ported (A15)
+    artifact_alias: str = "latest"          # not ported (A15)
+    label_smoothing: float | None = None  # None = the hyp file's value
+    cache_images: bool = False   # RAM-cache decoded images
+    quad: bool = False                      # not ported (A14)
+    bucket: str = ""                        # not ported (A15)
+    entity: str = ""                        # W&B entity: not ported (A15)
+    bbox_interval: int = -1                 # not ported (A15)
+
+
+DEFAULT_HYP = {
+    "lr0": 0.01, "lrf": 0.2, "momentum": 0.937, "weight_decay": 0.0005,
+    "warmup_epochs": 3.0, "warmup_momentum": 0.8, "warmup_bias_lr": 0.1,
+    "box": 0.05, "cls": 0.5, "cls_pw": 1.0, "obj": 1.0, "obj_pw": 1.0,
+    "iou_t": 0.20, "anchor_t": 4.0, "fl_gamma": 0.0,
+    "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "degrees": 0.0,
+    "translate": 0.1, "scale": 0.5, "shear": 0.0, "perspective": 0.0,
+    "flipud": 0.0, "fliplr": 0.5, "mosaic": 1.0, "mixup": 0.0,
+    "label_smoothing": 0.0,
+}
+
+
+def load_hyp(hyp) -> dict:
+    if isinstance(hyp, dict):
+        return {**DEFAULT_HYP, **hyp}
+    if hyp and os.path.isfile(hyp):
+        import yaml
+        with open(hyp) as fh:
+            return {**DEFAULT_HYP, **yaml.safe_load(fh)}
+    return dict(DEFAULT_HYP)
+
+
+def unported(cfg: TrainConfig, hyp: dict) -> None:
+    """Raise ``NotImplementedError`` for an option this port does not run
+    yet, naming its ROADMAP item."""
+    checks = [
+        (hyp.get("mosaic", 1.0) > 0 and cfg.mosaic_prob > 0 and not cfg.rect,
+         "mosaic (hyp mosaic > 0 with mosaic_prob > 0; --no-mosaic turns it "
+         "off)", "A14"),
+        (cfg.quad, "quad", "A14"), (cfg.multi_scale, "multi_scale", "A14"),
+        (cfg.rect, "rect", "A14"),
+        (cfg.mesh == "on" or cfg.n_model > 1, "the mesh/n_model modes "
+         "(DDP)", "A13"),
+        (bool(cfg.remat), "remat", "A13"),
+        (cfg.image_weights, "image_weights", "A15"),
+        (cfg.use_wandb or bool(cfg.entity), "wandb", "A15"),
+        (cfg.upload_dataset or cfg.log_artifacts or cfg.artifact_alias
+         != "latest" or str(cfg.resume).startswith("wandb-artifact://"),
+         "artifacts", "A15"),
+        (bool(cfg.bucket), "bucket", "A15"),
+        (cfg.bbox_interval > 0, "bbox_interval", "A15")]
+    for hit, what, item in checks:
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
+                                      f"{item})")
+
+
+def _spec_from_cfg(cfg: TrainConfig, nc: int):
+    if cfg.model.endswith((".yaml", ".yml")):
+        return load_yolo_yaml(cfg.model, nc=nc)
+    return get_model_spec(cfg.model, nc=nc)
+
+
+def anchors_grid(spec) -> torch.Tensor:
+    """(nl, na, 2) anchors in grid units (``Detect.grid_anchors()``)."""
+    a = np.asarray(spec.anchors, np.float32).reshape(spec.nl, spec.na, 2)
+    s = np.asarray(spec.strides, np.float32)[:, None, None]
+    return torch.from_numpy(a / s)
+
+
+@torch.no_grad()
+def transfer_matching(model: torch.nn.Module, loaded: dict
+                      ) -> tuple[int, int]:
+    """Shape-tolerant transfer, the reference's intersect_dicts +
+    strict=False load (train.py:544-547): copy every entry whose name and
+    shape match; keep the model's elsewhere.  Returns (n_copied, n_total)
+    over the floating-point entries."""
+    own = {k: v for k, v in model.state_dict().items()
+           if v.is_floating_point()}
+    copied = 0
+    for k, v in own.items():
+        src = loaded.get(k)
+        if src is not None and tuple(src.shape) == tuple(v.shape):
+            v.copy_(src)
+            copied += 1
+    return copied, len(own)
+
+
+def build_sched_and_loss(cfg: TrainConfig, hyp: dict, steps_per_epoch: int):
+    sched = ScheduleConfig(
+        lr0=hyp["lr0"], lrf=hyp["lrf"], momentum=hyp["momentum"],
+        warmup_epochs=hyp["warmup_epochs"],
+        warmup_momentum=hyp["warmup_momentum"],
+        warmup_bias_lr=hyp["warmup_bias_lr"], epochs=cfg.epochs,
+        steps_per_epoch=steps_per_epoch, linear_lr=cfg.linear_lr,
+        warmup_floor=cfg.warmup_floor)
+    loss_hyp = LossHyp(
+        box=hyp["box"], cls=hyp["cls"], cls_pw=hyp["cls_pw"],
+        obj=hyp["obj"], obj_pw=hyp["obj_pw"], anchor_t=hyp["anchor_t"],
+        fl_gamma=hyp["fl_gamma"],
+        label_smoothing=hyp.get("label_smoothing", 0.0))
+    return sched, loss_hyp
+
+
+def _resolve_run(cfg: TrainConfig, hyp: dict):
+    """The workdir, the checkpoint dir to resume from (or None), and the
+    config and hyp after an in-place resume adopted the stored run's
+    structure fields (the JAX trainer's rules, trainer.py:304-372)."""
+    import yaml
+
+    from mmidet_tpu_torch.utils.general import get_latest_run
+    r = cfg.resume if isinstance(cfg.resume, str) else ""
+    if r in ("latest", "true", "True") or cfg.resume is True:
+        # bare --resume: the newest run under the project dir
+        r = get_latest_run(os.path.dirname(cfg.workdir) or ".")
+        if not r:
+            raise FileNotFoundError(
+                f"--resume latest: no previous run with a ckpt/ under "
+                f"{os.path.dirname(cfg.workdir) or '.'}")
+        cfg = dataclasses.replace(cfg, resume=r)
+    if cfg.resume and os.path.isdir(os.path.join(r, "ckpt")):
+        # a previous RUN dir continues in place and adopts the fields that
+        # shape the train state; the schedule fields stay the caller's, so
+        # that --resume --epochs N extends a run
+        opt_path = os.path.join(r, "opt.yaml")
+        if os.path.isfile(opt_path):
+            with open(opt_path) as fh:
+                stored = yaml.safe_load(fh) or {}
+            keep = {k: stored[k] for k in
+                    ("model", "adam", "optimizer_groups", "nbs",
+                     "batch_size", "use_cem", "aux_mode", "dtype",
+                     "single_cls") if k in stored}
+            if isinstance(stored.get("freeze"), list):
+                keep["freeze"] = tuple(stored["freeze"])
+            cfg = dataclasses.replace(cfg, **keep)
+            hyp_path = os.path.join(r, "hyp.yaml")
+            if os.path.isfile(hyp_path):
+                cfg = dataclasses.replace(cfg, hyp=hyp_path)
+            hyp = load_hyp(cfg.hyp)
+        return cfg, hyp, r, os.path.join(r, "ckpt")
+    if cfg.resume and os.path.isdir(r):  # a bare checkpoint dir
+        return cfg, hyp, increment_path(cfg.workdir, cfg.exist_ok), r
+    if cfg.resume:
+        return cfg, hyp, cfg.workdir, None
+    return cfg, hyp, increment_path(cfg.workdir, cfg.exist_ok), None
+
+
+def _shapes(ds: PairedDataset, n: int) -> list[tuple[int, int]]:
+    """(h, w) of the first ``n`` images, read from their headers."""
+    from PIL import Image
+    out = []
+    for f in ds.rgb_files[:n]:
+        with Image.open(f) as im:
+            out.append((im.size[1], im.size[0]))
+    return out
+
+
+def eval_model_for(spec, use_cem: bool, dtype: str) -> TwoStreamDetector:
+    """The per-epoch evaluation model: aux off, the fused token
+    transformer at every fusion level (``kernel_fusion``, the JAX
+    trainer's ``pallas_fusion``), BN not folded, bf16 when the run is."""
+    model = TwoStreamDetector(spec, use_cem=use_cem, kernel_fusion=True)
+    return model.to(torch.bfloat16 if dtype == "bfloat16"
+                    else torch.float32).eval()
+
+
+def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
+    """Run training; returns a summary dict (workdir, best fitness, the
+    deploy state dict, the train state, the last results)."""
+    import yaml
+    dev = eval_device(device)
+    hyp = load_hyp(cfg.hyp)
+    unported(cfg, hyp)
+    cfg, hyp, workdir, resume_src = _resolve_run(cfg, hyp)
+    unported(cfg, hyp)
+    if cfg.mesh == "auto" and dev.type == "cuda" and \
+            torch.cuda.device_count() > 1:
+        logger.warning("mesh 'auto': training on one card; data parallel "
+                       "over %d is ROADMAP A13", torch.cuda.device_count())
+    if cfg.label_smoothing is not None:  # CLI override
+        hyp["label_smoothing"] = float(cfg.label_smoothing)
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "hyp.yaml"), "w") as fh:
+        yaml.safe_dump(hyp, fh)
+    with open(os.path.join(workdir, "opt.yaml"), "w") as fh:
+        yaml.safe_dump({**dataclasses.asdict(cfg),
+                        "freeze": list(cfg.freeze)}, fh)
+
+    data = load_data_yaml(cfg.data)
+    nc = 1 if cfg.single_cls else int(data["nc"])
+    names = ["item"] if cfg.single_cls else \
+        data.get("names", [str(i) for i in range(nc)])
+    img_size = check_img_size(cfg.img_size)
+    spec = _spec_from_cfg(cfg, nc)
+
+    datasets = {}
+    for split in ("train", "val"):
+        ds = PairedDataset(data[f"{split}_rgb"], data[f"{split}_ir"],
+                           nc=None if cfg.single_cls else nc,
+                           cache_dir=workdir,
+                           cache_images=cfg.cache_images and split == "train")
+        if cfg.single_cls:  # ref --single-cls: all labels -> class 0
+            for lab in ds.labels:
+                if len(lab):
+                    lab[:, 0] = 0.0
+        datasets[split] = ds
+    train_ds, val_ds = datasets["train"], datasets["val"]
+
+    if cfg.autoanchor:  # pre-training anchor fit check (train.py:678-679)
+        from mmidet_tpu_torch.utils.autoanchor import check_anchors
+        shapes = _shapes(train_ds, min(len(train_ds), 512))
+        new_anchors = check_anchors(train_ds.labels[:len(shapes)], shapes,
+                                    np.asarray(spec.anchors, np.float64),
+                                    spec.strides, img_size)
+        flat = tuple(tuple(int(round(v)) for v in lvl.reshape(-1))
+                     for lvl in new_anchors)
+        if flat != spec.anchors:
+            logger.info("autoanchor updated anchors: %s", flat)
+            spec = dataclasses.replace(spec, anchors=flat)
+
+    two_stream = is_two_stream(spec)
+    # single-stream models carry no CEM and no fusion aux losses
+    use_cem = cfg.use_cem and two_stream
+    aux_mode = cfg.aux_mode if two_stream else "off"
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = TwoStreamDetector(spec, aux_mode=aux_mode, use_cem=use_cem)
+    if cfg.weights:  # pretrained init (ref --weights + intersect_dicts)
+        from mmidet_tpu_torch.cli.val import load_state_dict_file
+        n_cp, n_tot = transfer_matching(model,
+                                        load_state_dict_file(cfg.weights))
+        logger.info("transferred %d/%d items from %s", n_cp, n_tot,
+                    cfg.weights)
+    model = model.to(dev)
+    eval_model = eval_model_for(spec, use_cem, cfg.dtype).to(dev)
+
+    loader = PairedLoader(train_ds, cfg.batch_size, img_size, cfg.max_labels,
+                          shuffle=True, seed=cfg.seed, prefetch=cfg.workers)
+    steps_per_epoch = max(len(loader), 1)
+    sched, loss_hyp = build_sched_and_loss(cfg, hyp, steps_per_epoch)
+    build = build_adam if cfg.adam else build_optimizer
+    optimizer, _ = build(model, sched, hyp["weight_decay"],
+                         total_batch_size=cfg.batch_size, nbs=cfg.nbs,
+                         groups=cfg.optimizer_groups,
+                         freeze=tuple(cfg.freeze))
+    state = init_state(model, optimizer, cfg.ema_decay)
+    step_fn = make_train_step(anchors_grid(spec).to(dev), loss_hyp,
+                              two_stream=two_stream, dtype=cfg.dtype)
+    aug_hyp = AugmentHyp(**{k: hyp[k] for k in (
+        "hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
+        "perspective", "flipud", "fliplr", "mosaic")})
+    augment = make_batch_augment(img_size, aug_hyp, cfg.max_labels,
+                                 mosaic=False)
+
+    start_epoch, best_fit = 0, -1.0
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    if cfg.resume:
+        src = resume_src or ckpt_dir
+        try:
+            state, _, meta = restore_checkpoint(src, state)
+            start_epoch = int(meta.get("epoch", -1)) + 1
+            best_fit = float(meta.get("best_fitness", -1.0))
+            logger.info("resumed from %s at epoch %d", src, start_epoch)
+        except FileNotFoundError:
+            logger.warning("no checkpoint to resume under %s", src)
+    # the augmentation's draws: seeded, on the card, advanced per batch;
+    # a resumed run starts its stream again from the seed
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+
+    from mmidet_tpu_torch.utils.logger import MetricLogger
+    results_path = os.path.join(workdir, "results.txt")
+    mlog = MetricLogger(workdir)
+    try:  # optional: matplotlib may be missing
+        from mmidet_tpu_torch.utils.plots import plot_labels
+        plot_labels(train_ds.labels, nc, workdir)
+    except Exception:
+        pass
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info("model %s: %.2fM params, %d classes, %d train imgs, "
+                "%d epochs x %d steps, accumulate %d", cfg.model,
+                n_params / 1e6, nc, len(train_ds), cfg.epochs,
+                steps_per_epoch, optimizer.accumulate)
+
+    plotted = 0
+    res = None
+    epochs_run = []
+    for epoch in range(start_epoch, cfg.epochs):
+        t0 = time.time()
+        loader.epoch = epoch  # the shuffle order of this epoch
+        loss_sum = torch.zeros(4, dtype=torch.float64, device=dev)
+        nb = 0
+        for batch in loader:
+            jb = {k: torch.from_numpy(batch[k]).to(dev, non_blocking=True)
+                  for k in ("rgb", "ir", "targets", "mask")}
+            jb["rgb"] = jb["rgb"].float() / 255.0
+            jb["ir"] = jb["ir"].float() / 255.0
+            jb = augment(jb, gen)
+            if plotted < 3:  # first train batches (ref train.py:816-817)
+                try:
+                    from mmidet_tpu_torch.utils.plots import plot_images
+                    plot_images(jb["rgb"].cpu().numpy(),
+                                jb["targets"].cpu().numpy(),
+                                jb["mask"].cpu().numpy(),
+                                os.path.join(workdir,
+                                             f"train_batch{plotted}.jpg"),
+                                names=names)
+                except Exception:
+                    pass
+                plotted += 1
+            metrics = step_fn(state, jb)
+            loss_sum += torch.stack([metrics[k] for k in
+                                     ("box", "obj", "cls", "aux")]).double()
+            nb += 1
+        mloss = (loss_sum / max(nb, 1)).cpu().numpy()
+        epochs_run.append({"epoch": epoch, "box": float(mloss[0]),
+                           "obj": float(mloss[1]), "cls": float(mloss[2]),
+                           "aux": float(mloss[3]), "batches": nb,
+                           "seconds": time.time() - t0})
+
+        res = None
+        saved_this_epoch = False
+        final = epoch == cfg.epochs - 1
+        do_eval = (((epoch + 1) % cfg.eval_every == 0 or final)
+                   and (not cfg.notest or final))
+        if do_eval:
+            eval_model.load_state_dict(state.ema.state_dict())
+            res = evaluate(eval_model, PairedLoader(
+                val_ds, cfg.batch_size, img_size, cfg.max_labels,
+                drop_last=False, prefetch=cfg.workers, scaleup=False),
+                nc, names=names, device=dev)
+            fit = float(fitness(res.fitness_vector())[0])
+            is_best = fit > best_fit
+            if is_best:
+                best_fit = fit
+            meta = {"best_fitness": best_fit, "fitness": fit}
+            if not cfg.nosave or final:
+                save_checkpoint(ckpt_dir, state, epoch, meta)
+                saved_this_epoch = True
+            if is_best and not cfg.nosave:
+                # the rolling keep=3 would otherwise drop the best epoch
+                save_checkpoint(os.path.join(workdir, "ckpt_best"), state,
+                                epoch, meta, keep=1)
+            with open(results_path, "a") as fh:
+                fh.write(
+                    f"{epoch}/{cfg.epochs - 1} "
+                    f"box {mloss[0]:.4f} obj {mloss[1]:.4f} "
+                    f"cls {mloss[2]:.4f} P {res.mp:.4f} R {res.mr:.4f} "
+                    f"mAP50 {res.map50:.4f} mAP {res.map:.4f}\n")
+            mlog.log_metrics(epoch, {
+                "train/box": mloss[0], "train/obj": mloss[1],
+                "train/cls": mloss[2], "train/aux": mloss[3],
+                "val/P": res.mp, "val/R": res.mr, "val/mAP50": res.map50,
+                "val/mAP": res.map, "fitness": fit})
+            epochs_run[-1].update(fitness=fit, mAP50=res.map50,
+                                  eval_speed_ms=res.speed_ms[0])
+            logger.info(
+                "epoch %d/%d loss(box/obj/cls/aux) %.4f/%.4f/%.4f/%.4f "
+                "mAP50 %.4f mAP %.4f fit %.4f (%.1fs)", epoch,
+                cfg.epochs - 1, *mloss, res.map50, res.map, fit,
+                time.time() - t0)
+        if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0 \
+                and not saved_this_epoch:
+            # periodic save is independent of eval/nosave (ref save_period)
+            save_checkpoint(ckpt_dir, state, epoch,
+                            {"best_fitness": best_fit})
+
+    mlog.close()
+    try:  # optional: matplotlib may be missing
+        from mmidet_tpu_torch.utils.plots import plot_results
+        plot_results(results_path)
+    except Exception:
+        pass
+    # deploy weights come from the BEST checkpoint when one was kept (the
+    # reference strips best.pt for distribution, general.py:584-598)
+    deploy = strip_for_deploy(state)
+    best = checkpoints(os.path.join(workdir, "ckpt_best"))
+    if best:
+        deploy = torch.load(best[-1], map_location="cpu",
+                            weights_only=True)["ema"]
+    return {"workdir": workdir, "best_fitness": best_fit, "deploy": deploy,
+            "state": state, "last_results": res, "nc": nc, "names": names,
+            "spec": spec, "epochs": epochs_run}

@@ -1,8 +1,8 @@
-"""General utilities of the evaluation and detection CLIs.
+"""General utilities of the CLIs and the trainer.
 
 A copy of the functions of ``mmidet_tpu/utils/general.py`` that the port's
-CLIs use; reference ``utils/general.py``: run-dir management, size checks,
-colored logging, detection crops.
+CLIs and trainer use; reference ``utils/general.py``: run-dir management,
+size checks, colored logging, detection crops.
 """
 
 from __future__ import annotations
@@ -57,6 +57,15 @@ def increment_path(path: str, exist_ok: bool = False, sep: str = "") -> str:
     i = [int(m.groups()[0]) for m in matches if m]
     n = max(i) + 1 if i else 2
     return f"{path}{sep}{n}"
+
+
+def get_latest_run(search_dir: str = ".") -> str:
+    """The most recent run dir under ``search_dir``: a workdir holding a
+    ``ckpt/`` (ref get_latest_run, general.py:51-54, which globs
+    last.pt).  Returns the RUN dir, "" when there is none."""
+    ckpts = [c for c in glob.glob(f"{search_dir}/**/ckpt", recursive=True)
+             if os.path.isdir(c)]
+    return os.path.dirname(max(ckpts, key=os.path.getctime)) if ckpts else ""
 
 
 def save_one_box(xyxy, img: np.ndarray, path: str = "crop.jpg",

@@ -1,10 +1,16 @@
-"""Plotting: the color palette, box drawing and the confusion-matrix plot.
+"""Plotting: the color palette, box drawing, the confusion-matrix plot and
+the trainer's plots (train batches, label histograms, results curves).
 
 A copy of the parts of ``mmidet_tpu/utils/plots.py`` that the port's
-evaluator and CLIs use; reference ``utils/plots.py:29-445``.
+evaluator, CLIs and trainer use; reference ``utils/plots.py:29-445``.  The
+matplotlib plots are optional: their callers skip them where matplotlib is
+missing.
 """
 
 from __future__ import annotations
+
+import math
+import os
 
 import numpy as np
 
@@ -73,3 +79,79 @@ def plot_confusion_matrix(matrix: np.ndarray, names, save_path: str):
     fig.savefig(save_path, dpi=150)
     plt.close(fig)
     return save_path
+
+
+def plot_images(images: np.ndarray, targets: np.ndarray, mask: np.ndarray,
+                path: str, max_subplots: int = 16, names=None):
+    """Training-batch mosaic with boxes (ref plots.py plot_images).
+    images: (B,H,W,3) float 0..1; targets: (B,T,5) normalized."""
+    from PIL import Image
+    bs, h, w, _ = images.shape
+    ns = min(bs, max_subplots)
+    grid = int(math.ceil(ns ** 0.5))
+    canvas = np.full((grid * h, grid * w, 3), 255, np.uint8)
+    for i in range(ns):
+        gy, gx = divmod(i, grid)
+        img = (np.clip(images[i], 0, 1) * 255).astype(np.uint8)
+        for t in range(targets.shape[1]):
+            if not mask[i, t]:
+                continue
+            cls, cx, cy, bw, bh = targets[i, t]
+            box = [(cx - bw / 2) * w, (cy - bh / 2) * h,
+                   (cx + bw / 2) * w, (cy + bh / 2) * h]
+            label = names[int(cls)] if names else str(int(cls))
+            img = plot_one_box(box, img, color=colors(int(cls)),
+                               label=label)
+        canvas[gy * h:(gy + 1) * h, gx * w:(gx + 1) * w] = img
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    Image.fromarray(canvas).save(path)
+    return path
+
+
+def plot_results(results_file: str, save_path: str | None = None):
+    """Parse results.txt lines into curves png (ref plots.py plot_results)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import re
+    rows = []
+    with open(results_file) as fh:
+        for line in fh:
+            nums = re.findall(r"[-+]?\d*\.?\d+", line)
+            if len(nums) >= 8:
+                rows.append([float(x) for x in nums[-7:]])
+    if not rows:
+        return None
+    arr = np.asarray(rows)
+    labels = ["box", "obj", "cls", "P", "R", "mAP50", "mAP"]
+    fig, axes = plt.subplots(2, 4, figsize=(14, 6), tight_layout=True)
+    for i, lab in enumerate(labels):
+        ax = axes.flat[i]
+        ax.plot(arr[:, i])
+        ax.set_title(lab)
+    save_path = save_path or os.path.join(
+        os.path.dirname(results_file), "results.png")
+    fig.savefig(save_path, dpi=150)
+    plt.close(fig)
+    return save_path
+
+
+def plot_labels(labels: list[np.ndarray], nc: int, save_dir: str):
+    """Class/box histograms (ref plots.py plot_labels)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    cat = np.concatenate([l for l in labels if len(l)], 0) if labels else \
+        np.zeros((0, 5))
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4), tight_layout=True)
+    axes[0].hist(cat[:, 0], bins=max(nc, 1))
+    axes[0].set_title("classes")
+    axes[1].scatter(cat[:, 1], cat[:, 2], s=2, alpha=0.3)
+    axes[1].set_title("xy centers")
+    axes[2].scatter(cat[:, 3], cat[:, 4], s=2, alpha=0.3)
+    axes[2].set_title("wh")
+    os.makedirs(save_dir, exist_ok=True)
+    out = os.path.join(save_dir, "labels.png")
+    fig.savefig(out, dpi=150)
+    plt.close(fig)
+    return out

@@ -1,6 +1,6 @@
-"""The port's ``val`` and ``detect`` CLIs on the CPU, with the invocations
-of ``tests/test_cli.py``: the JSON line's keys, the label txt files and the
-images written.  The weights file: a state dict saved from the port's
+"""The port's ``val``, ``detect`` and ``train`` CLIs on the CPU, with the
+invocations of ``tests/test_cli.py``: the JSON line's keys, the label txt
+files and the images written; one epoch of ``train --no-mosaic``.  The weights file: a state dict saved from the port's
 unfused model loads through ``load_model_and_vars``, and the same ``.pt``
 through the JAX package's converter gives variables that the bridge maps
 back onto the same tensors."""
@@ -19,7 +19,7 @@ from mmidet_tpu.models.zoo import get_model_spec as jax_get_spec
 from mmidet_tpu.train.checkpoint import (convert_torch_state_dict,
                                          load_torch_checkpoint)
 from mmidet_tpu_torch.bridge import from_jax_variables
-from mmidet_tpu_torch.cli import detect, val
+from mmidet_tpu_torch.cli import detect, train, val
 from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
 from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.zoo import get_model_spec
@@ -209,3 +209,52 @@ def test_cli_entry_points_default_to_the_card(data_yaml):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         detect.main(["--cfg", "yolov5s_add", "--source1", d["val_rgb"],
                      "--source2", d["val_ir"]])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--cfg", "yolov5s_add", "--data", data_yaml,
+                    "--no-mosaic"])
+
+
+def test_train_cli_one_epoch(data_yaml, tmp_path, capsys):
+    """``cli.train --no-mosaic`` for one epoch (the smoke flags of
+    ``tests/test_cli.py``): a checkpoint per epoch, the best one, the
+    results line, and a best checkpoint the val CLI reads."""
+    out = train.main(["--cfg", "yolov5s_add", "--data", data_yaml,
+                      "--epochs", "1", "--batch-size", "2", "--img-size",
+                      "64", "--project", str(tmp_path / "runs"), "--name",
+                      "exp", "--no-mosaic", "--dtype", "float32",
+                      "--workers", "0"], device="cpu")
+    wd = out["workdir"]
+    assert wd == str(tmp_path / "runs" / "exp")
+    assert os.listdir(os.path.join(wd, "ckpt")) == ["epoch0.pt"]
+    assert os.listdir(os.path.join(wd, "ckpt_best")) == ["epoch0.pt"]
+    lines = open(os.path.join(wd, "results.txt")).read().splitlines()
+    assert len(lines) == 1 and lines[0].startswith("0/0 box ")
+    assert all(np.isfinite(out["epochs"][0][k])
+               for k in ("box", "obj", "cls", "aux"))
+    assert "done: best fitness" in capsys.readouterr().out
+    ck = torch.load(os.path.join(wd, "ckpt_best", "epoch0.pt"),
+                    weights_only=True)
+    assert {"model", "ema", "optimizer", "step", "epoch", "best_fitness",
+            "fitness"} <= set(ck)
+    assert val.load_weights(TwoStreamDetector(get_model_spec(
+        "yolov5s_add", nc=2)), val.load_state_dict_file(
+        os.path.join(wd, "ckpt_best", "epoch0.pt"))) == []
+
+
+@pytest.mark.parametrize("args,item", [
+    ([], "A14"),  # mosaic is the default
+    (["--no-mosaic", "--quad"], "A14"),
+    (["--no-mosaic", "--rect"], "A14"),
+    (["--no-mosaic", "--multi-scale"], "A14"),
+    (["--no-mosaic", "--mesh", "on"], "A13"),
+    (["--no-mosaic", "--n-model", "2"], "A13"),
+    (["--no-mosaic", "--image-weights"], "A15"),
+    (["--no-mosaic", "--evolve", "2"], "A15"),
+    (["--no-mosaic", "--upload-dataset"], "A15"),
+    (["--no-mosaic", "--bucket", "gs://b"], "A15"),
+    (["--no-mosaic", "--bbox-interval", "1"], "A15"),
+])
+def test_train_cli_unported_options_raise(data_yaml, tmp_path, args, item):
+    with pytest.raises(NotImplementedError, match=item):
+        train.main(["--cfg", "yolov5s_add", "--data", data_yaml,
+                    "--project", str(tmp_path), *args], device="cpu")

@@ -929,3 +929,107 @@ def test_val_cli_on_the_card(cuda, tmp_path, capsys):
     assert (tc.fused_token_transformer.launches, cem_cuda.fused_cem.launches,
             nms_cuda.nms_greedy.launches) == (
                 before[0] + 12, before[1] + 3, before[2] + 3)
+
+
+# --------------------------------------------------------- the training path
+def _train_steps(model, batch, steps=2):
+    """``steps`` f32 micro-steps of the port's train step, accumulate 1
+    (the schedule's first steps at lr0 1e-3: the weights' lr 0, then
+    lr0)."""
+    from mmidet_tpu_torch.train.optimizer import build_optimizer
+    from mmidet_tpu_torch.train.schedule import ScheduleConfig
+    from mmidet_tpu_torch.train.step import init_state, make_train_step
+    from mmidet_tpu_torch.train.trainer import anchors_grid
+    sched = ScheduleConfig(epochs=2, steps_per_epoch=2, warmup_epochs=0.0,
+                           warmup_floor=1, lr0=1e-3, warmup_bias_lr=1e-3)
+    opt, _ = build_optimizer(model, sched, 0.0005, total_batch_size=2,
+                             nbs=2)
+    state = init_state(model, opt)
+    step = make_train_step(anchors_grid(model.spec))
+    dev = next(model.parameters()).device
+    losses = [step(state, {k: v.to(dev) for k, v in batch.items()})
+              for _ in range(steps)]
+    return state, [{k: float(v) for k, v in m.items()} for m in losses]
+
+
+# f32, autocast and TF32 off, dropout p = 0: the card's two train steps
+# at 128 px against the CPU's from the same weights and batch, at lr 1e-3.
+# Each loss term within 1e-4 of its size; each tensor's change
+# (parameters, BN buffers, EMA) within 0.3 of the CPU's largest change of
+# that tensor, over tensors that changed by more than 1e-6 (chip_smoke.py's
+# TRAIN_F32_LOSS_TOL and TRAIN_F32_TOL, with the reasons and the H100's
+# readings there)
+@pytest.mark.parametrize("name", ["yolov5s_add", "flagship_small"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, name):
+    import copy
+
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    spec = two_stream_spec("l", "fourier", nc=2, fusion_layers=2) \
+        if name == "flagship_small" else get_model_spec(name, nc=2)
+    torch.manual_seed(0)
+    cpu = TwoStreamDetector(spec, aux_mode="reference")
+    for m in cpu.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    card = copy.deepcopy(cpu).to(cuda)
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    gen = torch.Generator().manual_seed(1)
+    targets = torch.zeros(2, 4, 5)
+    targets[:, :2] = torch.tensor([[1, 0.5, 0.5, 0.3, 0.4],
+                                   [0, 0.3, 0.3, 0.1, 0.2]])
+    batch = {"rgb": torch.rand(2, 128, 128, 3, generator=gen),
+             "ir": torch.rand(2, 128, 128, 3, generator=gen),
+             "targets": targets, "mask": torch.arange(4).expand(2, 4) < 2}
+    s_card, l_card = _train_steps(card, batch)
+    s_cpu, l_cpu = _train_steps(cpu, batch)
+    loss_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                   for a, b in zip(l_card, l_cpu)
+                   for k in ("box", "obj", "cls", "aux", "total"))
+    shares = {}
+    for got, want in ((s_card.model.state_dict(), s_cpu.model.state_dict()),
+                      (s_card.ema.state_dict(), s_cpu.ema.state_dict())):
+        for k, w in want.items():
+            if not w.is_floating_point():
+                continue
+            dw = w - before[k]
+            top = float(dw.abs().max())
+            if top > 1e-6:
+                dg = got[k].cpu() - before[k]
+                shares[k] = max(shares.get(k, 0.0), float(
+                    (dg - dw).abs().max()) / top)
+    worst = max(shares, key=shares.get)
+    assert loss_err <= 1e-4 and shares[worst] <= 0.3 and len(shares) > 100, \
+        (loss_err, worst, shares[worst])
+
+
+def test_trainer_evaluates_through_k1_and_k2_on_the_card(cuda, tmp_path,
+                                                         monkeypatch):
+    """One epoch of ``train`` on the card (yolov5s_gpt4, bf16, 64 px): the
+    train steps launch no kernel; the evaluation of the EMA runs K1 at the
+    four fusion levels and K2 once a batch."""
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    from mmidet_tpu_torch.train import trainer
+    data = make_synthetic_pair_dataset(str(tmp_path / "d"), n=4, img=64)
+    counts, real_eval = [], trainer.evaluate
+
+    def launches():
+        return (tc.fused_token_transformer.launches,
+                nms_cuda.nms_greedy.launches, cem_cuda.fused_cem.launches,
+                fusion_cuda.fused_gpt_merge.launches)
+
+    def counted(model, loader, nc, **kw):
+        counts.append(launches())
+        res = real_eval(model, loader, nc, **kw)
+        counts.append(launches())
+        return res
+    monkeypatch.setattr(trainer, "evaluate", counted)
+    start = launches()
+    out = trainer.train(trainer.TrainConfig(
+        model="yolov5s_gpt4", data=data, epochs=1, batch_size=2,
+        img_size=64, workdir=str(tmp_path / "run"), mosaic_prob=0.0,
+        workers=0))
+    assert counts[0] == start  # nothing launched by the train steps
+    k1, k2, k3, k4 = (b - a for a, b in zip(counts[0], counts[1]))
+    assert (k1, k2, k3, k4) == (4 * 2, 2, 0, 0)
+    assert np.isfinite(out["epochs"][0]["box"])
+    assert next(out["state"].model.parameters()).device.type == "cuda"

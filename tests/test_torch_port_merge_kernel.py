@@ -128,6 +128,9 @@ def test_merge_path_matches_unfused_module_plus_add2(cls, hw):
 def test_merge_path_is_for_eval_mode_only():
     torch.manual_seed(0)
     mod = CrossModalTransformer(64, n_layer=1, merge_kernel=True)
+    for m in mod.modules():  # train mode runs dropout; this holds the route
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
     x = torch.randn(1, 64, 8, 8)
     with torch.no_grad():
         unmerged = mod.train()(x, x)

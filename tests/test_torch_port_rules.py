@@ -208,3 +208,27 @@ def test_eval_path_modules_are_covered_and_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             evaluator.eval_device("cuda")
+
+
+def test_training_modules_are_covered_and_default_to_the_card():
+    """The training path's modules are among the files the import rule
+    above reads, and ``train`` and ``cli.train`` run on the card unless
+    asked for the CPU."""
+    import inspect
+
+    from mmidet_tpu_torch.cli import train as train_cli
+    from mmidet_tpu_torch.train import trainer
+    port = ROOT / "mmidet_tpu_torch"
+    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
+    assert {"ops/boxes.py", "losses/detection.py", "losses/fusion.py",
+            "nn/fusion.py", "nn/layers.py", "models/detector.py",
+            "train/schedule.py", "train/optimizer.py", "train/ema.py",
+            "train/step.py", "train/checkpoint.py", "train/trainer.py",
+            "data/augment.py", "utils/autoanchor.py", "utils/logger.py",
+            "utils/general.py", "utils/plots.py", "cli/train.py"} <= files
+    for fn in (trainer.train, train_cli.main):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        cfg = trainer.TrainConfig(data="unused.yaml", mosaic_prob=0.0)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer.train(cfg)
