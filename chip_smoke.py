@@ -76,7 +76,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      train steps of the flagship at 128 px, batch 2, on the card against
      the CPU from the same weights and batch (autocast and TF32 off,
      dropout p = 0): the loss terms, and the changes of the parameters, BN
-     buffers and EMA;
+     buffers and EMA; then ``mosaic_gate``: the mosaic augmentation
+     (``make_batch_augment(640, ..., mosaic=True)``) on a batch of 8 from
+     ``MosaicLoader``, card against CPU with the same draws, on the
+     default hyp's axis-aligned path and on the general warp (degrees 10,
+     shear 2), and its ms a batch; ``train_mosaic_path``: ``train_path``
+     with mosaic on, the JAX package's default, through ``MosaicLoader``
+     (the loader's waits timed in both); ``train_flags_path``: one epoch
+     each of ``quad``, ``multi_scale`` and ``rect`` at 320 px, the shapes
+     every step saw against the option's, each evaluation checked and
+     counted as ``train_path``'s; ``remat``: one bf16 micro-step of the flagship at 640, batch
+     8, with remat "", "dots" and "full" (ms, peak memory), and in f32 at
+     128 px each remat step against the plain one;
   13. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
@@ -1474,24 +1485,104 @@ def phase_eval_path(torch, dev, card: str, data_seconds: float):
     return runs, gates, cli
 
 
-def train_path_config(workdir: Path, epochs: int = 2):
+def train_path_config(workdir: Path, epochs: int = 2, **kw):
     """The train path's run: the flagship at full width and depth, 640 px,
     batch 8 (accumulate 8 to nbs 64), aux losses as the reference, CEM on,
-    bf16 autocast, basic augmentation with the default hyps, on the eval
+    bf16 autocast, basic augmentation with the default hyps (``kw``
+    ``mosaic_prob=1.0``: mosaic, the JAX package's default), on the eval
     path's 64 square pairs as train and val set."""
     from mmidet_tpu_torch.train.trainer import TrainConfig
-    return TrainConfig(
-        model="yolov5l_fuse3_fourier",
-        data=str(EVAL_DATA / "square" / "synthetic.yaml"), epochs=epochs,
-        batch_size=8, img_size=640, workdir=str(workdir), mosaic_prob=0.0,
-        aux_mode="reference", use_cem=True, dtype="bfloat16", seed=0,
-        exist_ok=True)
+    return TrainConfig(**{
+        "model": "yolov5l_fuse3_fourier",
+        "data": str(EVAL_DATA / "square" / "synthetic.yaml"),
+        "epochs": epochs, "batch_size": 8, "img_size": 640,
+        "workdir": str(workdir), "mosaic_prob": 0.0,
+        "aux_mode": "reference", "use_cem": True, "dtype": "bfloat16",
+        "seed": 0, "exist_ok": True, **kw})
 
 
-def phase_train_path(torch, dev, card: str):
+def wait_timed(cls, waits: list, legs: list):
+    """``cls`` (a train loader) whose iterations add the seconds spent
+    waiting for each batch to a new entry of ``waits`` and record its
+    decode leg in ``legs``; an evaluation loader (``drop_last=False``)
+    iterates as it is."""
+    class Timed(cls):
+        def __iter__(self):
+            it = super().__iter__()
+            if not getattr(self, "drop_last", True):
+                yield from it
+                return
+            waits.append(0.0)
+            legs.append("native" if getattr(self, "use_native", False)
+                        else "pil")
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    waits[-1] += time.perf_counter() - t0
+                    yield item
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+    return Timed
+
+
+def checked_eval(torch, phase: str, real_eval, evals: list):
+    """A stand-in for the trainer's ``evaluate``: the train steps since the
+    last evaluation launched no kernel; each evaluation runs first untimed
+    with every K1 and K2 call held against its plain version
+    (``checked_kernels``: K1 within ``K1_EVAL_TOL``, K2 identical indices,
+    4 K1 calls and 1 K2 call a batch), then timed with the launches
+    counted from 0; one record an evaluation into ``evals``."""
+    def counted_eval(model, loader, nc, **kw):
+        # the train steps since the last evaluation launched no kernel
+        during_steps = read_counts()
+        if any(during_steps.values()):
+            raise AssertionError(f"{phase}: the train steps launched "
+                                 f"kernels: {during_steps}")
+        batches = list(loader)
+        nb = len(batches)
+        # untimed: every K1 and K2 call against its plain version
+        checks, paths = [], []
+        with checked_kernels(torch, checks, paths):
+            real_eval(model, batches, nc, **kw)
+        checked = check_summary(checks)
+        calls = {k: v["calls"] for k, v in checked.items()}
+        if not all(v["ok"] for v in checked.values()) or calls != {
+                "fused_token_transformer": 4 * nb, "nms_greedy": nb}:
+            raise AssertionError(f"{phase} eval: a kernel disagrees with "
+                                 f"its plain version or was not checked on "
+                                 f"every call: {checked}")
+        # timed, as the trainer runs it: launches counted from 0
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = real_eval(model, batches, nc, **kw)
+        secs = time.perf_counter() - t0
+        launches = read_counts(fused_token_transformer=4 * nb,
+                               nms_greedy=nb, nms_greedy_large=nb)
+        zero_counts()
+        evals.append({"batches": nb, "launches": launches,
+                      "checked": checked,
+                      "k2_paths": {p: paths.count(p)
+                                   for p in sorted(set(paths))},
+                      "speed_ms": res.speed_ms[0], "seconds": secs,
+                      "dtype": str(next(model.parameters()).dtype),
+                      "P": res.mp, "R": res.mr, "mAP50": res.map50})
+        return res
+    return counted_eval
+
+
+def phase_train_path(torch, dev, card: str, phase: str = "train_path",
+                     epochs: int = 2, **kw):
     """``train`` on the card (see the module docstring, step 12), its
-    steps timed, its per-epoch evaluations checked and counted, and its
-    best checkpoint through the val CLI."""
+    steps timed, the loader's waits timed, its per-epoch evaluations
+    checked and counted, and its best checkpoint through the val CLI.
+    ``kw`` goes to ``train_path_config``."""
     from unittest import mock
 
     from mmidet_tpu_torch.cli import val as val_cli
@@ -1501,9 +1592,10 @@ def phase_train_path(torch, dev, card: str):
     from mmidet_tpu_torch.train.optimizer import GroupedOptimizer
 
     t_phase = time.perf_counter()
-    workdir = EVAL_DATA / "train_run"
-    cfg = train_path_config(workdir)
+    workdir = EVAL_DATA / f"{phase}_run"
+    cfg = train_path_config(workdir, epochs, **kw)
     step_ms, opt_ms, evals, initial = [], [], [], {}
+    waits, legs = [], []
     real_make = trainer_mod.make_train_step
     real_opt, real_ema = GroupedOptimizer.step, ModelEMA.update
     real_eval = trainer_mod.evaluate
@@ -1537,42 +1629,7 @@ def phase_train_path(torch, dev, card: str):
         torch.cuda.synchronize()
         opt_ms[-1].append((time.perf_counter() - t0) * 1e3)
 
-    def counted_eval(model, loader, nc, **kw):
-        # the train steps since the last evaluation launched no kernel
-        during_steps = read_counts()
-        if any(during_steps.values()):
-            raise AssertionError(f"train_path: the train steps launched "
-                                 f"kernels: {during_steps}")
-        batches = list(loader)
-        nb = len(batches)
-        # untimed: every K1 and K2 call against its plain version
-        checks, paths = [], []
-        with checked_kernels(torch, checks, paths):
-            real_eval(model, batches, nc, **kw)
-        checked = check_summary(checks)
-        calls = {k: v["calls"] for k, v in checked.items()}
-        if not all(v["ok"] for v in checked.values()) or calls != {
-                "fused_token_transformer": 4 * nb, "nms_greedy": nb}:
-            raise AssertionError(f"train_path eval: a kernel disagrees with "
-                                 f"its plain version or was not checked on "
-                                 f"every call: {checked}")
-        # timed, as the trainer runs it: launches counted from 0
-        torch.cuda.synchronize()
-        zero_counts()
-        t0 = time.perf_counter()
-        res = real_eval(model, batches, nc, **kw)
-        secs = time.perf_counter() - t0
-        launches = read_counts(fused_token_transformer=4 * nb,
-                               nms_greedy=nb, nms_greedy_large=nb)
-        zero_counts()
-        evals.append({"batches": nb, "launches": launches,
-                      "checked": checked,
-                      "k2_paths": {p: paths.count(p)
-                                   for p in sorted(set(paths))},
-                      "speed_ms": res.speed_ms[0], "seconds": secs,
-                      "dtype": str(next(model.parameters()).dtype),
-                      "P": res.mp, "R": res.mr, "mAP50": res.map50})
-        return res
+    counted_eval = checked_eval(torch, phase, real_eval, evals)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1581,13 +1638,17 @@ def phase_train_path(torch, dev, card: str):
     with mock.patch.object(trainer_mod, "make_train_step", make_timed), \
             mock.patch.object(trainer_mod, "evaluate", counted_eval), \
             mock.patch.object(GroupedOptimizer, "step", timed_opt), \
-            mock.patch.object(ModelEMA, "update", timed_ema):
+            mock.patch.object(ModelEMA, "update", timed_ema), \
+            mock.patch.object(trainer_mod, "PairedLoader", wait_timed(
+                trainer_mod.PairedLoader, waits, legs)), \
+            mock.patch.object(trainer_mod, "MosaicLoader", wait_timed(
+                trainer_mod.MosaicLoader, waits, legs)):
         out = trainer_mod.train(cfg, device=dev)
     train_seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     after = read_counts()
     if any(after.values()):
-        raise AssertionError(f"train_path: kernels launched after the last "
+        raise AssertionError(f"{phase}: kernels launched after the last "
                              f"evaluation: {after}")
     state = out["state"]
     ema_sd = state.ema.state_dict()
@@ -1605,9 +1666,11 @@ def phase_train_path(torch, dev, card: str):
     loop_img_per_s = [e["batches"] * cfg.batch_size / e["seconds"]
                       for e in out["epochs"]]
     best = checkpoints(str(workdir / "ckpt_best"))
-    rec = {"phase": "train_path", "model": "yolov5l_fuse3_fourier",
+    loop_seconds = [e["seconds"] for e in out["epochs"]]
+    rec = {"phase": phase, "model": "yolov5l_fuse3_fourier",
            "card": card, "img": 640, "batch": 8, "dtype": "bfloat16",
-           "aux_mode": "reference", "epochs": len(out["epochs"]),
+           "aux_mode": "reference", "mosaic": cfg.mosaic_prob > 0,
+           "loader_leg": legs, "epochs": len(out["epochs"]),
            "micro_steps": len(step_ms), "optimizer_steps": len(opt_ms),
            "accumulate": state.optimizer.accumulate,
            "micro_step_ms": micro, "micro_step_ms_first": step_ms[0],
@@ -1615,6 +1678,11 @@ def phase_train_path(torch, dev, card: str):
            "train_img_per_s": loop_img_per_s[-1],
            "loop_img_per_s_by_epoch": loop_img_per_s,
            "step_img_per_s": cfg.batch_size * 1e3 / micro,
+           # seconds the loop waited for the loader's next batch, and
+           # their share of each epoch's loop
+           "loader_wait_s_by_epoch": waits,
+           "loader_wait_share_by_epoch": [w / s for w, s in
+                                          zip(waits, loop_seconds)],
            "optimizer_step_ms": [sum(x) for x in opt_ms],
            "optimizer_ms_split": opt_ms, "peak_mem_gb": peak,
            "losses": losses, "ema_max_change": ema_moved,
@@ -1623,8 +1691,8 @@ def phase_train_path(torch, dev, card: str):
     emit(rec)
     if not finite or ema_moved <= 0 or len(evals) != cfg.epochs or \
             len(opt_ms) != len(step_ms) // state.optimizer.accumulate or \
-            not best:
-        raise AssertionError(f"train_path: losses finite {finite}, EMA "
+            not best or len(waits) != cfg.epochs:
+        raise AssertionError(f"{phase}: losses finite {finite}, EMA "
                              f"moved {ema_moved}, {len(evals)} evaluations, "
                              f"{len(opt_ms)} optimizer steps, best {best}")
 
@@ -1637,14 +1705,14 @@ def phase_train_path(torch, dev, card: str):
                       cfg.data, "--weights", best[-1], "--batch-size", "32",
                       "--img-size", "640"], device=dev)
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
-    cli = {"phase": "train_path_val_cli", "weights": best[-1],
+    cli = {"phase": f"{phase}_val_cli", "weights": best[-1],
            "seconds": time.perf_counter() - t0, "json": line,
            "launches": read_counts(),
            "phase_seconds": time.perf_counter() - t_phase}
     emit(cli)
     if set(line) != {"P", "R", "mAP50", "mAP75", "mAP", "speed_ms"} or \
             not all(math.isfinite(v) for v in line.values()):
-        raise AssertionError(f"train_path: the val CLI on the best "
+        raise AssertionError(f"{phase}: the val CLI on the best "
                              f"checkpoint: {line}")
     rec["val_cli"] = cli
     return rec
@@ -1827,6 +1895,344 @@ def phase_p2_p3(torch, dev):
     return r3, fb, launches
 
 
+# mosaic_gate: the mosaic augmentation on the card against the same
+# function on the CPU, the same batch and draws.  The default hyp's path
+# gathers two taps an axis and sums two products a row and a column (the
+# same operations on both sides, f32, TF32 off), then the HSV maps: 1e-5
+# of values in [0, 1].  The general path's warp builds and inverts each
+# 3x3 matrix on each side (cos, sin, tan and the inverse may round apart
+# by an ulp), and each sample point, a coordinate below 2s = 1280, lands
+# on the f32 grid there (spacing 2^-23 * 1024 = 1.2e-4 px): one step in x
+# and one in y move a bilinear value across a unit edge by up to 1.2e-4
+# each, so its warped images (the canvas through ``warp_image``) within
+# 2.5e-4 (read 1.5e-4 on an H100); then the HSV gains and the flips,
+# applied on both sides to the CPU's warped images, within 1e-5.  End to
+# end the general path is not gated per pixel: the multiplicative hue
+# gain (h * g mod 1) jumps by up to hsv_h (0.015) at the hue circle's
+# wrap, so a warp rounding that moves a pixel's hue across 0 moves it by
+# about 0.01 (read 0.013 on an H100 at 95 of 19.7M values); the record
+# shows that error.  Labels normalized, through the same matrices: 1e-4.
+# Masks equal.
+MOSAIC_IMG_TOL = 1e-5
+MOSAIC_WARP_TOL = 2.5e-4
+MOSAIC_LABEL_TOL = 1e-4
+
+
+def general_warp_gate(torch, A, cpu, card_batch, draws, got, want):
+    """The general path's stages, card against CPU (see MOSAIC_WARP_TOL):
+    the warped images, and the gains and flips on the CPU's warped images.
+    Returns (the second's max error, a record)."""
+    s = cpu["rgb4"].shape[2]
+    dev = card_batch["rgb4"].device
+    warped = {}
+    for side, b, dr in (("cpu", cpu, draws),
+                        ("card", card_batch, _to(torch, draws, dev))):
+        M, _ = A._perspective_matrix(dr["warp"], 2 * s, 2 * s, s // 2)
+        warped[side] = [A.warp_image(A.mosaic4(
+            b[k], b["labels4"], b["mask4"], dr["center"], s,
+            pads=b["pads4"])[0], M, (s, s)) for k in ("rgb4", "ir4")]
+    warp_err = max(float((g.cpu() - w).abs().max())
+                   for g, w in zip(warped["card"], warped["cpu"]))
+
+    def finish(rgb, ir, dr):
+        return A._flip(A.augment_hsv(rgb, dr["gains_rgb"]),
+                       A.augment_hsv(ir, dr["gains_ir"]), dr)
+    want_hsv = finish(*warped["cpu"], draws)
+    got_hsv = finish(*(w.to(dev) for w in warped["cpu"]),
+                     _to(torch, draws, dev))
+    hsv_err = max(float((g.cpu() - w).abs().max())
+                  for g, w in zip(got_hsv, want_hsv))
+    return hsv_err, {"warp_max_abs_err": warp_err,
+                     "end_to_end_max_abs_err": max(
+                         float((g - w).abs().max())
+                         for g, w in zip(got[:2], want[:2])),
+                     "end_to_end_values_above_1e-4": sum(
+                         int(((g - w).abs() > 1e-4).sum())
+                         for g, w in zip(got[:2], want[:2]))}
+
+
+def _to(torch, tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(torch, v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_mosaic_gate(torch, dev, card: str):
+    """``make_batch_augment(640, hyp, 120, mosaic=True)``'s function on a
+    batch of 8 from ``MosaicLoader`` (the eval path's square pairs), card
+    against CPU with the same draws, on both of its paths: the default hyp
+    (the axis-aligned path) and degrees 10, shear 2 (the canvas and the
+    general warp); the card's ms a batch, its draws included, as the
+    trainer calls it."""
+    import dataclasses
+
+    from mmidet_tpu_torch.data import augment as A
+    from mmidet_tpu_torch.data.datasets import PairedDataset, load_data_yaml
+    from mmidet_tpu_torch.data.loader import MosaicLoader
+    t_phase = time.perf_counter()
+    d = load_data_yaml(str(EVAL_DATA / "square" / "synthetic.yaml"))
+    ds = PairedDataset(d["train_rgb"], d["train_ir"], nc=2,
+                       cache_dir=str(EVAL_DATA / "mosaic_gate"))
+    loader = MosaicLoader(ds, 8, 640, seed=0)
+    t0 = time.perf_counter()
+    raw = next(iter(loader))
+    load_s = time.perf_counter() - t0
+    cpu = {k: torch.from_numpy(raw[k]) for k in
+           ("rgb4", "ir4", "labels4", "mask4", "pads4")}
+    cpu["rgb4"] = cpu["rgb4"].float() / 255.0
+    cpu["ir4"] = cpu["ir4"].float() / 255.0
+    card_batch = _to(torch, cpu, dev)
+    recs = []
+    for branch, hyp in (("default", A.AugmentHyp()),
+                        ("general", dataclasses.replace(
+                            A.AugmentHyp(), degrees=10.0, shear=2.0))):
+        draws = A.mosaic_draws(8, 640, hyp, torch.Generator().manual_seed(0))
+        args = ("rgb4", "ir4", "labels4", "mask4")
+        want = A.augment_pair_mosaic(*(cpu[k] for k in args), draws, 640,
+                                     hyp, 120, pads4=cpu["pads4"])
+        got = A.augment_pair_mosaic(*(card_batch[k] for k in args),
+                                    _to(torch, draws, dev), 640, hyp, 120,
+                                    pads4=card_batch["pads4"])
+        got = [g.cpu() for g in got]
+        lab_err = float((got[2] - want[2]).abs().max())
+        masks_equal = bool(torch.equal(got[3], want[3]))
+        gate = {}
+        img_tol = MOSAIC_IMG_TOL
+        if branch == "default":
+            img_err = max(float((g - w).abs().max())
+                          for g, w in zip(got[:2], want[:2]))
+        else:
+            img_err, gate = general_warp_gate(torch, A, cpu, card_batch,
+                                              draws, got, want)
+        fn = A.make_batch_augment(640, hyp, 120, mosaic=True)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ms = time_ms(lambda: fn(card_batch, gen), reps=10)
+        t0 = time.perf_counter()
+        fn(cpu, torch.Generator().manual_seed(1))
+        cpu_s = time.perf_counter() - t0
+        rec = {"phase": "mosaic_gate", "card": card, "branch": branch,
+               "batch": 8, "img": 640, "loader_leg": "native"
+               if loader.use_native else "pil", "loader_batch_s": load_s,
+               "img_max_abs_err": img_err, "img_tol": img_tol,
+               "label_max_abs_err": lab_err,
+               "label_tol": MOSAIC_LABEL_TOL, "masks_equal": masks_equal,
+               "valid_labels": int(want[3].sum()), **gate, "ms": ms,
+               "host_cpu_s_same_call": cpu_s,
+               "finite": all(bool(torch.isfinite(g).all())
+                             for g in got[:3])}
+        emit(rec)
+        if img_err > img_tol or lab_err > MOSAIC_LABEL_TOL or \
+                not masks_equal or not rec["finite"] or \
+                not rec["valid_labels"] or \
+                gate.get("warp_max_abs_err", 0.0) > MOSAIC_WARP_TOL:
+            raise AssertionError(f"mosaic_gate: the card's mosaic "
+                                 f"augmentation disagrees with the CPU's: "
+                                 f"{rec}")
+        recs.append(rec)
+    emit({"phase": "mosaic_gate_done",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return recs
+
+
+def phase_train_flags_path(torch, dev, card: str):
+    """One epoch each of ``quad``, ``multi_scale`` and ``rect`` through
+    ``train`` (the flagship at 320 px, batch 8, bf16, on the eval path's
+    pairs: square for the first two, 640x512 for rect), the shapes every
+    step saw held against what the option gives, each evaluation's K1 and
+    K2 calls held against their plain versions and their launches counted
+    (``checked_eval``)."""
+    from unittest import mock
+
+    import yaml
+
+    from mmidet_tpu_torch.data.datasets import PairedDataset
+    from mmidet_tpu_torch.data.loader import RectLoader
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+    t_phase = time.perf_counter()
+    rect_yaml = EVAL_DATA / "rect" / "train.yaml"
+    rgb, ir = (str(EVAL_DATA / "rect" / f"val_{m}" / "images")
+               for m in ("rgb", "ir"))
+    rect_yaml.write_text(yaml.safe_dump({
+        "train_rgb": rgb, "train_ir": ir, "val_rgb": rgb, "val_ir": ir,
+        "nc": 2}))
+    real_make, real_eval = trainer_mod.make_train_step, trainer_mod.evaluate
+    recs = []
+    for option, kw in (("quad", {"quad": True, "mosaic_prob": 1.0}),
+                       ("multi_scale", {"multi_scale": True,
+                                        "mosaic_prob": 1.0}),
+                       ("rect", {"rect": True,
+                                 "data": str(rect_yaml)})):
+        shapes, step_ms = [], []
+
+        def make(*a, **k):
+            inner = real_make(*a, **k)
+
+            def step(state, batch):
+                shapes.append(tuple(batch["rgb"].shape))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return step
+
+        evals = []
+        counted = checked_eval(torch, f"train_flags_path {option}",
+                               real_eval, evals)
+        cfg = train_path_config(EVAL_DATA / f"flags_{option}", 1,
+                                img_size=320, **kw)
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer_mod, "make_train_step", make), \
+                mock.patch.object(trainer_mod, "evaluate", counted):
+            out = trainer_mod.train(cfg, device=dev)
+        secs = time.perf_counter() - t0
+        after = read_counts()
+        if any(after.values()):
+            raise AssertionError(f"train_flags_path {option}: kernels "
+                                 f"launched after the evaluation: {after}")
+        if option == "quad":
+            want = [(2, 640, 640, 3)] * len(shapes)
+        elif option == "multi_scale":
+            sizes = trainer_mod.multi_scale_sizes(320, 32, 0)
+            ok = all(h == w and h in sizes for _, h, w, _ in shapes)
+            want = shapes if ok else []
+        else:
+            ds = PairedDataset(rgb, ir, nc=2,
+                               cache_dir=str(EVAL_DATA / "flags_rect"))
+            rl = RectLoader(ds, 8, 320, stride=32, pad=0.0, scaleup=True)
+            want = [(min(8, len(ds) - 8 * i), h, w, 3)
+                    for i, (h, w) in enumerate(rl.shapes)]
+        rec = {"phase": "train_flags_path", "card": card, "option": option,
+               "model": "yolov5l_fuse3_fourier", "img": 320, "batch": 8,
+               "dtype": "bfloat16", "step_shapes": sorted(set(shapes)),
+               "steps": len(shapes), "micro_step_ms_median":
+               statistics.median(step_ms), "peak_mem_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+               "losses": {k: out["epochs"][0][k] for k in
+                          ("box", "obj", "cls", "aux")},
+               "evals": evals, "seconds": secs}
+        emit(rec)
+        if shapes != want or not shapes or len(evals) != 1 or \
+                not all(math.isfinite(v) for v in rec["losses"].values()):
+            raise AssertionError(f"train_flags_path {option}: the steps "
+                                 f"saw {shapes}, expected {want}: {rec}")
+        if option == "multi_scale" and len(set(shapes)) < 2:
+            raise AssertionError(f"train_flags_path: one size drawn {rec}")
+        recs.append(rec)
+    emit({"phase": "train_flags_path_done",
+          "phase_seconds": time.perf_counter() - t_phase})
+    return recs
+
+
+# remat in f32 on the card: the same weights, batch and seed with remat
+# "dots" and "full" against the step without; the recomputation runs the
+# same kernels on the same inputs, so parameters and BN buffers agree to
+# within 1e-5 of max(1, |value|) (cuDNN may pick another algorithm for a
+# recomputed convolution); BN counts the batch once
+REMAT_F32_TOL = 1e-5
+
+
+def phase_remat(torch, dev, card: str):
+    """One micro-step of the flagship at 640, batch 8, bf16 (accumulate 8:
+    no optimizer step) with remat "", "dots" and "full": ms and peak
+    memory each; then the f32 gate at 128 px, batch 2."""
+    import copy
+
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    from mmidet_tpu_torch.train.optimizer import build_optimizer
+    from mmidet_tpu_torch.train.schedule import ScheduleConfig
+    from mmidet_tpu_torch.train.step import init_state, make_train_step
+    from mmidet_tpu_torch.train.trainer import anchors_grid
+    t_phase = time.perf_counter()
+
+    def batch(b, img, gen):
+        targets = torch.zeros(b, 120, 5)
+        targets[:, :3] = torch.tensor([[1, 0.5, 0.5, 0.3, 0.4],
+                                       [0, 0.25, 0.3, 0.1, 0.15],
+                                       [1, 0.7, 0.6, 0.2, 0.1]])
+        return {"rgb": torch.rand(b, img, img, 3, generator=gen).to(dev),
+                "ir": torch.rand(b, img, img, 3, generator=gen).to(dev),
+                "targets": targets.to(dev),
+                "mask": (torch.arange(120) < 3).expand(b, 120).to(dev)}
+
+    def state_for(model, batch_size, nbs):
+        sched = ScheduleConfig(epochs=2, steps_per_epoch=2, warmup_floor=1,
+                               lr0=1e-3, warmup_bias_lr=1e-3)
+        opt, _ = build_optimizer(model, sched, 0.0005,
+                                 total_batch_size=batch_size, nbs=nbs)
+        return init_state(model, opt)
+    torch.manual_seed(0)
+    spec = get_model_spec("yolov5l_fuse3_fourier", nc=2)
+    model = TwoStreamDetector(spec, aux_mode="reference").to(dev)
+    anchors = anchors_grid(spec).to(dev)
+    b640 = batch(8, 640, torch.Generator().manual_seed(0))
+    # a warm-up micro-step, then 3 timed ones a policy, each policy on a
+    # state of its own (accumulate 8: no optimizer step; the gradients
+    # stay allocated throughout)
+    make_train_step(anchors, dtype="bfloat16")(state_for(model, 8, 64),
+                                               b640)
+    timed = []
+    for remat in ("", "dots", "full"):
+        step = make_train_step(anchors, dtype="bfloat16", remat=remat)
+        state = state_for(model, 8, 64)
+        ms = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, b640)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timed.append({"remat": remat, "micro_step_ms": statistics.median(ms),
+                      "micro_step_ms_all": ms, "peak_mem_gb":
+                      torch.cuda.max_memory_allocated() / 1e9})
+        if state.opt_step:
+            raise AssertionError("remat: an optimizer step was taken")
+    del state, model, b640
+    torch.cuda.empty_cache()
+
+    # f32 at 128 px, batch 2, TF32 off: with and without remat
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        torch.manual_seed(1)
+        base = TwoStreamDetector(spec, aux_mode="reference").to(dev)
+        b128 = batch(2, 128, torch.Generator().manual_seed(1))
+        out = {}
+        for remat in ("", "dots", "full"):
+            m = copy.deepcopy(base)
+            st = state_for(m, 2, 2)
+            torch.manual_seed(2)  # the dropout masks
+            make_train_step(anchors, remat=remat)(st, b128)
+            out[remat] = m.state_dict()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    errs, counts = {}, {}
+    for remat in ("dots", "full"):
+        errs[remat] = max(
+            float((out[remat][k].float() - v.float()).abs().max())
+            / max(1.0, float(v.float().abs().max()))
+            for k, v in out[""].items() if v.is_floating_point())
+        counts[remat] = sorted({int(v) for k, v in out[remat].items()
+                                if k.endswith("num_batches_tracked")})
+    rec = {"phase": "remat", "card": card, "model": "yolov5l_fuse3_fourier",
+           "img": 640, "batch": 8, "dtype": "bfloat16", "runs": timed,
+           "f32_128_max_rel_err": errs, "f32_tol": REMAT_F32_TOL,
+           "bn_num_batches_tracked": counts,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if any(e > REMAT_F32_TOL for e in errs.values()) or \
+            any(c != [1] for c in counts.values()) or \
+            not all(math.isfinite(r["micro_step_ms"]) for r in timed):
+        raise AssertionError(f"remat: {rec}")
+    return rec
+
+
 def summed(recs, key):
     return sum(r[key] for r in recs)
 
@@ -1894,6 +2300,11 @@ def main() -> int:
     phase_eval_path(torch, dev, name, data["seconds"])
     train = phase_train_path(torch, dev, name)
     phase_train_f32_gate(torch, dev, name)
+    phase_mosaic_gate(torch, dev, name)
+    train_mosaic = phase_train_path(torch, dev, name, "train_mosaic_path",
+                                    mosaic_prob=1.0)
+    train_flags = phase_train_flags_path(torch, dev, name)
+    phase_remat(torch, dev, name)
     shutil.rmtree(EVAL_DATA, ignore_errors=True)
     p1, p1_launches = phase_p1(torch, dev)
     p2, p3, probe_launches = phase_p2_p3(torch, dev)
@@ -1910,6 +2321,12 @@ def main() -> int:
          # the trainer's per-epoch evaluation: 4 a batch, every epoch
          "train_eval_launches": sum(e["launches"]["fused_token_transformer"]
                                     for e in train["evals"]),
+         "train_mosaic_eval_launches": sum(
+             e["launches"]["fused_token_transformer"]
+             for e in train_mosaic["evals"]),
+         "train_flags_eval_launches": sum(
+             e["launches"]["fused_token_transformer"]
+             for r in train_flags for e in r["evals"]),
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": summed(k1_path, "ms"), "plain_ms": summed(k1_path, "plain_ms"),
          "bound_ms": summed(k1_path, "bound_ms"),
@@ -1949,6 +2366,12 @@ def main() -> int:
          "launches": eval_nms["nms_greedy_large"],
          "train_eval_launches": sum(e["launches"]["nms_greedy_large"]
                                     for e in train["evals"]),
+         "train_mosaic_eval_launches": sum(
+             e["launches"]["nms_greedy_large"]
+             for e in train_mosaic["evals"]),
+         "train_flags_eval_launches": sum(
+             e["launches"]["nms_greedy_large"]
+             for r in train_flags for e in r["evals"]),
          "max_abs_err": k2_large["max_abs_err"], "ms": k2_large["ms"],
          "plain_ms": k2_large["plain_ms"], "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"], "library_ms": None},

@@ -1,15 +1,15 @@
 """Training CLI: the JAX package's ``cli/train.py`` surface (reference
 ``train.py:948-983``), its 47 options and defaults, on the port's trainer.
 
-    python -m mmidet_tpu_torch.cli.train --data data.yaml --no-mosaic
+    python -m mmidet_tpu_torch.cli.train --data data.yaml
 
-runs on the card; ``main(argv, device="cpu")`` runs it on the CPU (a
-keyword argument, not a flag).  Options the port does not run yet raise
+runs on the card, with mosaic batches unless ``--no-mosaic`` (or
+``--rect``); ``main(argv, device="cpu")`` runs it on the CPU (a keyword
+argument, not a flag).  Options the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item (the trainer's
 ``unported``; ``--evolve``: A15).  ``--sync-bn`` is accepted and does
-nothing: one device holds the whole batch; so are ``--tp-min-out`` and
-``--multi-scale-buckets``, which only qualify ``--n-model`` and
-``--multi-scale``.
+nothing: one device holds the whole batch; so is ``--tp-min-out``, which
+only qualifies ``--n-model``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ROADMAP A15")
     p.add_argument("--artifact-alias", type=str, default="latest",
                    help="ROADMAP A15")
-    p.add_argument("--no-mosaic", action="store_true")
+    p.add_argument("--no-mosaic", action="store_true",
+                   help="letterboxed batches with the basic augmentation "
+                        "instead of mosaic")
     p.add_argument("--no-cem", action="store_true")
     p.add_argument("--aux-mode", type=str, default="reference",
                    choices=["reference", "full", "off"])
@@ -70,9 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ROADMAP A15")
     p.add_argument("--single-cls", action="store_true",
                    help="train as single-class dataset")
-    p.add_argument("--multi-scale", action="store_true", help="ROADMAP A14")
-    p.add_argument("--multi-scale-buckets", type=int, default=0)
-    p.add_argument("--rect", action="store_true", help="ROADMAP A14")
+    p.add_argument("--multi-scale", action="store_true",
+                   help="resize each batch to a random multiple of the "
+                        "largest stride in [0.5, 1.5]x --img-size")
+    p.add_argument("--multi-scale-buckets", type=int, default=0,
+                   help="cap the multi-scale sizes to N evenly spaced ones "
+                        "(0: the whole range)")
+    p.add_argument("--rect", action="store_true",
+                   help="rectangular (aspect-bucketed) training; disables "
+                        "mosaic")
     p.add_argument("--notest", action="store_true",
                    help="only evaluate the final epoch")
     p.add_argument("--nosave", action="store_true",
@@ -97,7 +105,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="BCE label smoothing epsilon (overrides hyp)")
     p.add_argument("--cache-images", action="store_true",
                    help="RAM-cache decoded images after first access")
-    p.add_argument("--quad", action="store_true", help="ROADMAP A14")
+    p.add_argument("--quad", action="store_true",
+                   help="quad batches: groups of 4 -> one 2x-size sample "
+                        "(--batch-size divisible by 4)")
     p.add_argument("--bucket", type=str, default="", help="ROADMAP A15")
     p.add_argument("--entity", type=str, default="", help="ROADMAP A15")
     p.add_argument("--bbox-interval", type=int, default=-1,
@@ -125,7 +135,8 @@ def main(argv=None, device="cuda"):
         optimizer_groups=args.optimizer_groups,
         weights=args.weights, image_weights=args.image_weights,
         single_cls=args.single_cls, multi_scale=args.multi_scale,
-        rect=args.rect, notest=args.notest, nosave=args.nosave,
+        multi_scale_buckets=args.multi_scale_buckets, rect=args.rect,
+        notest=args.notest, nosave=args.nosave,
         save_period=args.save_period, exist_ok=args.exist_ok,
         workers=args.workers, freeze=tuple(args.freeze),
         upload_dataset=args.upload_dataset,

@@ -1,12 +1,12 @@
-"""Batched evaluation loaders with fixed shapes and background prefetch.
+"""Batched loaders with fixed shapes and background prefetch.
 
-Counterpart of ``mmidet_tpu/data/loader.py`` (``_load_image_scale``,
-``collate_paired``, ``RectLoader``, ``PairedLoader``); reference
+Counterpart of ``mmidet_tpu/data/loader.py``; reference
 ``InfiniteDataLoader`` and the rect batching of ``utils/datasets.py``.
-Batches are dicts of numpy arrays: images letterboxed to the eval size (or
-to a rect batch's shape), labels padded to ``max_labels`` with a validity
-mask.  A background thread decodes the next batches while the card runs
-the current one.  The mosaic training loaders are not ported yet.
+Batches are dicts of numpy arrays: images letterboxed to the train or eval
+size (or to a rect batch's shape), labels padded to ``max_labels`` with a
+validity mask; the mosaic loader's batches hold 4 letterboxed tiles a
+sample.  A background thread decodes the next batches while the card runs
+the current one.
 """
 
 from __future__ import annotations
@@ -90,6 +90,72 @@ def collate_paired(samples: list[dict], img_size: int = 640,
             "files": [s.get("rgb_file", "") for s in samples]}
 
 
+def _mosaic_pool(bsz: int, s: int, max_labels_tile: int, tiles, metas,
+                 labels) -> dict:
+    """The mosaic pool batch from its (4B) tiles per modality, their
+    letterbox (dw, dh) and their labels, in group order."""
+    labels4 = np.zeros((bsz, 4, max_labels_tile, 5), np.float32)
+    mask4 = np.zeros((bsz, 4, max_labels_tile), bool)
+    # [top, left, nh, nw] content placement inside each letterboxed tile:
+    # the card's mosaic anchors CONTENT corners at the centre, as the
+    # reference's aspect-shaped placement (datasets.py:1780-1795)
+    pads4 = np.zeros((bsz, 4, 4), np.float32)
+    for k, ((dw, dh), lab) in enumerate(zip(metas, labels)):
+        b, t = divmod(k, 4)
+        pads4[b, t] = (int(round(dh - 0.1)), int(round(dw - 0.1)),
+                       int(round(s - 2 * dh)), int(round(s - 2 * dw)))
+        n = min(len(lab), max_labels_tile)
+        if n:
+            # normalized in the original frame -> normalized in the tile's
+            # letterboxed square, on the ROUNDED content extents
+            l = lab[:n].copy()
+            nw, nh = s - 2.0 * dw, s - 2.0 * dh
+            l[:, 1] = (l[:, 1] * nw + dw) / s
+            l[:, 2] = (l[:, 2] * nh + dh) / s
+            l[:, 3] = l[:, 3] * nw / s
+            l[:, 4] = l[:, 4] * nh / s
+            labels4[b, t, :n] = l
+            mask4[b, t, :n] = True
+    rgb, ir = tiles
+    return {"rgb4": rgb.reshape(bsz, 4, s, s, 3),
+            "ir4": ir.reshape(bsz, 4, s, s, 3), "labels4": labels4,
+            "mask4": mask4, "pads4": pads4}
+
+
+def collate_mosaic_pool(samples4: list[list[dict]], img_size: int,
+                        max_labels_tile: int = 60) -> dict:
+    """Collate B groups of 4 samples into the mosaic augmentation's input:
+    rgb4/ir4 (B, 4, s, s, 3) uint8 letterboxed tiles, labels4 (B, 4, T, 5),
+    mask4 (B, 4, T) and pads4 (B, 4, 4) (the reference picks self + 3
+    random images, datasets.py:1764)."""
+    s, flat = img_size, [smp for g in samples4 for smp in g]
+    rgb = np.empty((len(flat), s, s, 3), np.uint8)
+    ir = np.empty((len(flat), s, s, 3), np.uint8)
+    metas = []
+    for k, smp in enumerate(flat):
+        rgb[k], _, pad = letterbox_np(smp["rgb"], (s, s))
+        ir[k] = letterbox_np(smp["ir"], (s, s))[0]
+        metas.append(pad)
+    return _mosaic_pool(len(samples4), s, max_labels_tile, (rgb, ir), metas,
+                        [smp["labels"] for smp in flat])
+
+
+def collate_mosaic_pool_native(ds: PairedDataset, groups_idx, img_size: int,
+                               max_labels_tile: int = 60) -> dict:
+    """The native fastloader's mosaic collate: ONE C call decodes and
+    letterboxes all 4B tiles per modality; the label geometry comes from
+    the returned (r, dw, dh), the numbers ``collate_mosaic_pool``
+    computes."""
+    s = img_size
+    flat = [j for g in groups_idx for j in g]
+    rgb, meta = native.batch_decode_letterbox([ds.rgb_files[j] for j in flat],
+                                              s)
+    ir, _ = native.batch_decode_letterbox([ds.ir_files[j] for j in flat], s)
+    return _mosaic_pool(len(groups_idx), s, max_labels_tile, (rgb, ir),
+                        [(dw, dh) for _, dw, dh in meta],
+                        [ds.labels[j] for j in flat])
+
+
 def _prefetched(make_batches, depth: int):
     """Yield what ``make_batches()`` yields, produced ``depth`` ahead on a
     background thread; an exception there is raised here.  The thread is
@@ -125,6 +191,62 @@ def _prefetched(make_batches, depth: int):
             except queue.Empty:
                 pass
             t.join(timeout=0.01)
+
+
+class MosaicLoader:
+    """Training loader of mosaic pool batches (4 tiles a sample: the
+    indexed image + 3 uniformly random ones, as the reference).  An epoch's
+    order and companions come from ``np.random.default_rng(seed +
+    epoch)``: the permutation, then 3 companions a sample drawn batch by
+    batch, as the JAX package's loader draws them.
+
+    ``use_native``: decode through the C++ fastloader (one call per batch
+    and modality); None (default) takes it when it is available and the
+    dataset does not cache images.  Per-image sampling weights
+    (``--image-weights``) are ROADMAP A15."""
+
+    def __init__(self, dataset: PairedDataset, batch_size: int,
+                 img_size: int = 640, max_labels_tile: int = 60,
+                 seed: int = 0, prefetch: int = 2,
+                 use_native: bool | None = None):
+        if use_native is None:
+            use_native = (native.available()
+                          and not getattr(dataset, "cache_images", False))
+        self.use_native = use_native
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.img_size = img_size
+        self.max_labels_tile = max_labels_tile
+        self.seed = seed
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.ds) // self.batch_size
+
+    def set_image_weights(self, weights):
+        raise NotImplementedError("image_weights is not ported yet "
+                                  "(ROADMAP A15)")
+
+    def _batches(self, rng, idx):
+        n = len(self.ds)
+        for b in range(len(self)):
+            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            groups = [[int(i)] + [int(x) for x in rng.integers(0, n, 3)]
+                      for i in sel]
+            if self.use_native:
+                yield collate_mosaic_pool_native(
+                    self.ds, groups, self.img_size, self.max_labels_tile)
+            else:
+                yield collate_mosaic_pool(
+                    [[self.ds[j] for j in g] for g in groups],
+                    self.img_size, self.max_labels_tile)
+
+    def __iter__(self):
+        rng = np.random.default_rng(self.seed + self.epoch)
+        self.epoch += 1
+        idx = rng.permutation(len(self.ds))
+        return _prefetched(lambda: self._batches(rng, idx), self.prefetch)
 
 
 class RectLoader:

@@ -60,13 +60,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     done here from the batch statistics that kernel returns (mean and
     inverse std, f32 under bf16 autocast).  Eval mode, the state-dict
     names (``weight``, ``bias``, ``running_mean``, ``running_var``,
-    ``num_batches_tracked``) and ``fold_batchnorm`` are torch's."""
+    ``num_batches_tracked``) and ``fold_batchnorm`` are torch's.
+
+    ``update_stats = False`` normalises by the batch as above and leaves
+    the running buffers as they are: the train step's recomputation of the
+    forward under ``remat`` sets it, so that a step updates them once."""
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if not self.update_stats:
+            return y
         with torch.no_grad():
             m = self.momentum  # flax: 0.97 * running + 0.03 * batch
             self.running_mean.mul_(1.0 - m).add_(m * mean)

@@ -8,16 +8,36 @@ gradients, optimizer state and the EMA stay f32.  There is no GradScaler:
 bf16 has f32's range, and the JAX step scales no loss either.  The loss is
 computed in f32 outside autocast.  The metrics come back as 0-dim tensors
 on the model's device: nothing here waits for the card.
+
+``remat`` recomputes the forward's activations in the backward, as the
+JAX package wraps its whole train forward in ``jax.checkpoint``:
+``"full"`` keeps nothing, ``"dots"`` keeps the outputs of the convolutions
+and matrix products (JAX's ``checkpoint_dots``, which saves
+``dot_general`` and ``conv_general_dilated``) and recomputes the rest.
+The recomputation draws the same dropout masks (the RNG state is
+restored), runs under the same autocast, and leaves BatchNorm's running
+buffers alone, so that a step updates them once, as JAX's functional
+``batch_stats`` are.  One checkpoint spans the whole forward, so the
+backward's first use of a saved tensor recomputes every activation at
+once: the peak memory of a step stays where it is without remat
+(``chip_smoke.py``'s ``remat`` phase), where XLA can interleave the
+recomputation with the backward.  So on this port ``remat`` saves no
+memory and only costs time (an H100 measured 3.0x the plain micro-step
+for "full" and 4.2x for "dots", the same peak); it is kept so that the
+JAX package's setting trains alike.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from mmidet_tpu_torch.losses.detection import LossHyp, compute_loss
+from mmidet_tpu_torch.nn.layers import BatchNorm2d
 from mmidet_tpu_torch.train.ema import ModelEMA
 from mmidet_tpu_torch.train.optimizer import GroupedOptimizer
 
@@ -39,24 +59,73 @@ def init_state(model: nn.Module, optimizer: GroupedOptimizer,
                       optimizer=optimizer)
 
 
+# the ops whose outputs remat="dots" keeps
+_DOTS = {torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _recompute(model: nn.Module, inner):
+    """``inner``, with ``model``'s BatchNorms leaving their running
+    buffers alone."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        with inner:
+            yield
+    finally:
+        for m in bns:
+            m.update_stats = True
+
+
+def _remat_contexts(model: nn.Module, remat: str):
+    def contexts():
+        fwd, rec = (ckpt.create_selective_checkpoint_contexts(_dots_policy)
+                    if remat == "dots" else
+                    (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, _recompute(model, rec)
+    return contexts
+
+
 def make_train_step(anchors: torch.Tensor, hyp: LossHyp = LossHyp(),
-                    two_stream: bool = True, dtype: str = "float32"):
+                    two_stream: bool = True, dtype: str = "float32",
+                    remat: str = ""):
     """Build ``step(state, batch) -> metrics``.
 
     batch: dict with 'rgb' (B, H, W, 3) and 'ir' [two-stream] in [0, 1],
     'targets' (B, T, 5) normalized [cls, x, y, w, h], 'mask' (B, T) bool,
     all on the model's device.  The optimizer steps, and the EMA advances,
     every ``state.optimizer.accumulate`` micro-steps (the reference's
-    ``ni % accumulate == 0``, train.py:798-804)."""
+    ``ni % accumulate == 0``, train.py:798-804).  ``remat``: "" (off),
+    "dots" or "full"; neither lowers the peak memory here (see the module
+    docstring)."""
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"dtype {dtype!r}: 'float32' or 'bfloat16'")
+    if remat not in ("", "dots", "full"):
+        raise ValueError(f"remat {remat!r}: '', 'dots' or 'full'")
+
+    def forward(model, rgb, ir):
+        with torch.autocast(rgb.device.type, torch.bfloat16,
+                            enabled=dtype == "bfloat16"):
+            return model(rgb, ir)
 
     def step(state: TrainState, batch: dict) -> dict:
         model = state.model.train()
         dev = batch["rgb"].device
-        with torch.autocast(dev.type, torch.bfloat16,
-                            enabled=dtype == "bfloat16"):
-            out = model(batch["rgb"], batch["ir"] if two_stream else None)
+        args = (model, batch["rgb"], batch["ir"] if two_stream else None)
+        if remat:
+            out = ckpt.checkpoint(
+                forward, *args, use_reentrant=False,
+                context_fn=_remat_contexts(model, remat))
+        else:
+            out = forward(*args)
         total, metrics = compute_loss(
             out["train_outs"], batch["targets"], batch["mask"],
             anchors.to(dev), hyp, combine_loss=out["aux"].get("combine"))

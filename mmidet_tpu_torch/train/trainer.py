@@ -15,6 +15,16 @@ token transformer (K1) at every fusion level, BN not folded; ``evaluate``
 runs its NMS through greedy NMS's large-pool form (K2, ``pre_nms_topk``
 30000).  ``best_fitness`` drives ``ckpt_best/``.
 
+The loader and the augmentation are the JAX trainer's choice
+(:448-482): with hyp ``mosaic`` > 0 and ``mosaic_prob`` > 0 (the default)
+and no ``rect``, ``MosaicLoader`` and the mosaic augmentation; with
+``rect``, ``RectLoader``'s aspect-bucketed batches; else ``PairedLoader``;
+the last two with the basic augmentation.  Tiles and images reach the
+card as uint8 and become floats there.  ``quad`` regroups each augmented
+batch by 4 (``quad_batch``), ``multi_scale`` resizes it to a size drawn
+from ``multi_scale_sizes`` by ``default_rng(seed + 2)``, and ``remat``
+recomputes the train forward in the backward (``train/step.py``).
+
 ``train(cfg, device="cuda")`` runs on the card; without CUDA it raises
 unless ``device="cpu"``.  Options of the JAX trainer that are not ported
 raise ``NotImplementedError`` naming their ROADMAP item.
@@ -30,9 +40,12 @@ import time
 import numpy as np
 import torch
 
-from mmidet_tpu_torch.data.augment import AugmentHyp, make_batch_augment
+from mmidet_tpu_torch.data.augment import (AugmentHyp, make_batch_augment,
+                                           quad_batch, quad_draws,
+                                           resize_nhwc)
 from mmidet_tpu_torch.data.datasets import PairedDataset, load_data_yaml
-from mmidet_tpu_torch.data.loader import PairedLoader
+from mmidet_tpu_torch.data.loader import (MosaicLoader, PairedLoader,
+                                          RectLoader)
 from mmidet_tpu_torch.eval.evaluator import eval_device, evaluate
 from mmidet_tpu_torch.eval.metrics import fitness
 from mmidet_tpu_torch.losses.detection import LossHyp
@@ -55,9 +68,8 @@ logger = logging.getLogger(__name__)
 class TrainConfig:
     """The JAX package's ``TrainConfig`` but ``fused_loop`` (the port runs
     the two-dispatch order) and the fields that only qualify options not
-    ported here (``tp_min_out``, ``multi_scale_buckets``,
-    ``artifact_project``).  Fields marked "not ported" raise when set away
-    from their default."""
+    ported here (``tp_min_out``, ``artifact_project``).  Fields marked "not
+    ported" raise when set away from their default."""
     model: str = "yolov5l_fuse3_fourier"   # zoo name or YAML path
     mesh: str = "auto"   # 'auto': one device here; 'on': not ported (A13)
     n_model: int = 1     # tensor parallelism: not ported (A13)
@@ -70,7 +82,7 @@ class TrainConfig:
     workdir: str = "runs/train/exp"
     adam: bool = False
     linear_lr: bool = False
-    mosaic_prob: float = 1.0               # > 0 with hyp mosaic > 0: A14
+    mosaic_prob: float = 1.0   # > 0 with hyp mosaic > 0: mosaic batches
     use_cem: bool = True
     aux_mode: str = "reference"
     dtype: str = "bfloat16"
@@ -85,12 +97,20 @@ class TrainConfig:
     nbs: int = 64            # nominal batch size (ref train.py:564): sets
     #                          gradient accumulation round(nbs / batch)
     #                          and the weight-decay scale
-    remat: str = ""                         # not ported (A13)
+    remat: str = ""          # '' | 'dots' | 'full': the forward recomputed
+    #                          in the backward, as the JAX package's; one
+    #                          checkpoint over the whole forward, so it
+    #                          saves no memory here, only costs time
+    #                          (train/step.py)
     weights: str = ""        # pretrained init: a .pt state dict (tolerant)
     image_weights: bool = False             # not ported (A15)
     single_cls: bool = False
-    multi_scale: bool = False               # not ported (A14)
-    rect: bool = False                      # not ported (A14)
+    multi_scale: bool = False    # random /gs size in [0.5, 1.5]x a batch
+    #                              (ref train.py:778-783)
+    multi_scale_buckets: int = 0  # cap the size set to N evenly spaced
+    #                               sizes (0: the reference's whole range)
+    rect: bool = False           # aspect-bucketed train batches (disables
+    #                              mosaic, as the reference does)
     notest: bool = False         # eval only on the final epoch
     nosave: bool = False         # checkpoint only on the final epoch
     save_period: int = -1        # extra checkpoint every N epochs
@@ -102,7 +122,8 @@ class TrainConfig:
     artifact_alias: str = "latest"          # not ported (A15)
     label_smoothing: float | None = None  # None = the hyp file's value
     cache_images: bool = False   # RAM-cache decoded images
-    quad: bool = False                      # not ported (A14)
+    quad: bool = False           # groups of 4 -> one 2x-size sample
+    #                              (ref --quad / collate_fn4)
     bucket: str = ""                        # not ported (A15)
     entity: str = ""                        # W&B entity: not ported (A15)
     bbox_interval: int = -1                 # not ported (A15)
@@ -130,18 +151,12 @@ def load_hyp(hyp) -> dict:
     return dict(DEFAULT_HYP)
 
 
-def unported(cfg: TrainConfig, hyp: dict) -> None:
+def unported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for an option this port does not run
     yet, naming its ROADMAP item."""
     checks = [
-        (hyp.get("mosaic", 1.0) > 0 and cfg.mosaic_prob > 0 and not cfg.rect,
-         "mosaic (hyp mosaic > 0 with mosaic_prob > 0; --no-mosaic turns it "
-         "off)", "A14"),
-        (cfg.quad, "quad", "A14"), (cfg.multi_scale, "multi_scale", "A14"),
-        (cfg.rect, "rect", "A14"),
         (cfg.mesh == "on" or cfg.n_model > 1, "the mesh/n_model modes "
          "(DDP)", "A13"),
-        (bool(cfg.remat), "remat", "A13"),
         (cfg.image_weights, "image_weights", "A15"),
         (cfg.use_wandb or bool(cfg.entity), "wandb", "A15"),
         (cfg.upload_dataset or cfg.log_artifacts or cfg.artifact_alias
@@ -153,6 +168,17 @@ def unported(cfg: TrainConfig, hyp: dict) -> None:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                       f"{item})")
+
+
+def multi_scale_sizes(img_size: int, gs: int, buckets: int) -> np.ndarray:
+    """The /gs image sizes ``--multi-scale`` draws from, across [0.5, 1.5]x
+    img_size (ref train.py:778-783); ``buckets`` > 0 caps the set at that
+    many evenly spaced sizes."""
+    lo, hi = img_size // 2 // gs, img_size * 3 // 2 // gs
+    if buckets > 0:
+        return np.unique(np.round(
+            np.linspace(lo, hi, buckets)).astype(int)) * gs
+    return np.arange(lo, hi + 1) * gs
 
 
 def _spec_from_cfg(cfg: TrainConfig, nc: int):
@@ -270,9 +296,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     import yaml
     dev = eval_device(device)
     hyp = load_hyp(cfg.hyp)
-    unported(cfg, hyp)
+    unported(cfg)
     cfg, hyp, workdir, resume_src = _resolve_run(cfg, hyp)
-    unported(cfg, hyp)
+    unported(cfg)
     if cfg.mesh == "auto" and dev.type == "cuda" and \
             torch.cuda.device_count() > 1:
         logger.warning("mesh 'auto': training on one card; data parallel "
@@ -334,8 +360,25 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     model = model.to(dev)
     eval_model = eval_model_for(spec, use_cem, cfg.dtype).to(dev)
 
-    loader = PairedLoader(train_ds, cfg.batch_size, img_size, cfg.max_labels,
-                          shuffle=True, seed=cfg.seed, prefetch=cfg.workers)
+    if cfg.quad and cfg.batch_size % 4:
+        raise ValueError("--quad needs --batch-size divisible by 4")
+    # rect disables mosaic, as the reference (datasets.py: mosaic = augment
+    # and not rect)
+    use_mosaic = (hyp.get("mosaic", 1.0) > 0 and cfg.mosaic_prob > 0
+                  and not cfg.rect)
+    if use_mosaic:
+        loader = MosaicLoader(train_ds, cfg.batch_size, img_size,
+                              seed=cfg.seed, prefetch=cfg.workers)
+    elif cfg.rect:
+        # pad 0.0 (the reference pads 0.5 for evaluation only) and the
+        # model's largest stride, so that P6 shapes stay consistent
+        loader = RectLoader(train_ds, cfg.batch_size, img_size,
+                            cfg.max_labels, stride=int(max(spec.strides)),
+                            pad=0.0, scaleup=True)
+    else:
+        loader = PairedLoader(train_ds, cfg.batch_size, img_size,
+                              cfg.max_labels, shuffle=True, seed=cfg.seed,
+                              prefetch=cfg.workers)
     steps_per_epoch = max(len(loader), 1)
     sched, loss_hyp = build_sched_and_loss(cfg, hyp, steps_per_epoch)
     build = build_adam if cfg.adam else build_optimizer
@@ -345,12 +388,21 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                          freeze=tuple(cfg.freeze))
     state = init_state(model, optimizer, cfg.ema_decay)
     step_fn = make_train_step(anchors_grid(spec).to(dev), loss_hyp,
-                              two_stream=two_stream, dtype=cfg.dtype)
+                              two_stream=two_stream, dtype=cfg.dtype,
+                              remat=cfg.remat)
     aug_hyp = AugmentHyp(**{k: hyp[k] for k in (
         "hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
         "perspective", "flipud", "fliplr", "mosaic")})
     augment = make_batch_augment(img_size, aug_hyp, cfg.max_labels,
-                                 mosaic=False)
+                                 mosaic=use_mosaic)
+    batch_keys = (("rgb4", "ir4", "labels4", "mask4", "pads4") if use_mosaic
+                  else ("rgb", "ir", "targets", "mask"))
+    ms_rng = np.random.default_rng(cfg.seed + 2)
+    if cfg.multi_scale:
+        ms_sizes = multi_scale_sizes(img_size, int(max(spec.strides)),
+                                     cfg.multi_scale_buckets)
+        logger.info("multi-scale: %d sizes %s", len(ms_sizes),
+                    ms_sizes.tolist())
 
     start_epoch, best_fit = 0, -1.0
     ckpt_dir = os.path.join(workdir, "ckpt")
@@ -391,10 +443,21 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         nb = 0
         for batch in loader:
             jb = {k: torch.from_numpy(batch[k]).to(dev, non_blocking=True)
-                  for k in ("rgb", "ir", "targets", "mask")}
-            jb["rgb"] = jb["rgb"].float() / 255.0
-            jb["ir"] = jb["ir"].float() / 255.0
+                  for k in batch_keys}
+            for k in ("rgb", "ir", "rgb4", "ir4"):  # uint8 -> [0, 1] here
+                if k in jb:
+                    jb[k] = jb[k].float() / 255.0
             jb = augment(jb, gen)
+            if cfg.quad:
+                jb = quad_batch(jb["rgb"], jb["ir"], jb["targets"],
+                                jb["mask"], quad_draws(
+                                    jb["rgb"].shape[0] // 4, gen))
+            if cfg.multi_scale:
+                # labels are normalized: only the images are resized
+                sz = int(ms_rng.choice(ms_sizes))
+                if sz != jb["rgb"].shape[1]:
+                    jb["rgb"] = resize_nhwc(jb["rgb"], sz)
+                    jb["ir"] = resize_nhwc(jb["ir"], sz)
             if plotted < 3:  # first train batches (ref train.py:816-817)
                 try:
                     from mmidet_tpu_torch.utils.plots import plot_images

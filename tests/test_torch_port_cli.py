@@ -1,6 +1,7 @@
 """The port's ``val``, ``detect`` and ``train`` CLIs on the CPU, with the
 invocations of ``tests/test_cli.py``: the JSON line's keys, the label txt
-files and the images written; one epoch of ``train --no-mosaic``.  The weights file: a state dict saved from the port's
+files and the images written; one epoch of ``train --no-mosaic`` and one
+with mosaic, the default.  The weights file: a state dict saved from the port's
 unfused model loads through ``load_model_and_vars``, and the same ``.pt``
 through the JAX package's converter gives variables that the bridge maps
 back onto the same tensors."""
@@ -241,11 +242,38 @@ def test_train_cli_one_epoch(data_yaml, tmp_path, capsys):
         os.path.join(wd, "ckpt_best", "epoch0.pt"))) == []
 
 
+def test_train_cli_trains_with_mosaic_by_default(data_yaml, tmp_path,
+                                                 monkeypatch):
+    """``cli.train`` without ``--no-mosaic``: one epoch on mosaic batches
+    (``MosaicLoader``, the mosaic augmentation); ``--quad``,
+    ``--multi-scale`` and ``--rect`` reach the trainer."""
+    from mmidet_tpu_torch.train import trainer
+    made, cfgs, real_loader = [], [], trainer.MosaicLoader
+
+    def loader(*a, **kw):
+        made.append(real_loader(*a, **kw))
+        return made[-1]
+    monkeypatch.setattr(trainer, "MosaicLoader", loader)
+    out = train.main(["--cfg", "yolov5s_add", "--data", data_yaml,
+                      "--epochs", "1", "--batch-size", "2", "--img-size",
+                      "64", "--project", str(tmp_path / "runs"), "--name",
+                      "exp", "--dtype", "float32", "--workers", "0"],
+                     device="cpu")
+    assert len(made) == 1 and made[0].epoch == 1
+    assert np.isfinite(out["epochs"][0]["box"])
+    monkeypatch.setattr(train, "train", lambda cfg, device: cfgs.append(
+        cfg) or {"best_fitness": 0.0, "workdir": ""})
+    train.main(["--data", data_yaml, "--quad", "--multi-scale",
+                "--multi-scale-buckets", "5", "--rect"], device="cpu")
+    assert (cfgs[0].quad, cfgs[0].multi_scale, cfgs[0].multi_scale_buckets,
+            cfgs[0].rect, cfgs[0].mosaic_prob) == (True, True, 5, True, 1.0)
+
+
 @pytest.mark.parametrize("args,item", [
-    ([], "A14"),  # mosaic is the default
-    (["--no-mosaic", "--quad"], "A14"),
-    (["--no-mosaic", "--rect"], "A14"),
-    (["--no-mosaic", "--multi-scale"], "A14"),
+    (["--entity", "team"], "A15"),
+    (["--log-artifacts"], "A15"),
+    (["--artifact-alias", "v1"], "A15"),
+    (["--resume", "wandb-artifact://p/run1"], "A15"),
     (["--no-mosaic", "--mesh", "on"], "A13"),
     (["--no-mosaic", "--n-model", "2"], "A13"),
     (["--no-mosaic", "--image-weights"], "A15"),

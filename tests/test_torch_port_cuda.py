@@ -932,10 +932,10 @@ def test_val_cli_on_the_card(cuda, tmp_path, capsys):
 
 
 # --------------------------------------------------------- the training path
-def _train_steps(model, batch, steps=2):
+def _train_steps(model, batch, steps=2, remat=""):
     """``steps`` f32 micro-steps of the port's train step, accumulate 1
     (the schedule's first steps at lr0 1e-3: the weights' lr 0, then
-    lr0)."""
+    lr0), with ``remat``."""
     from mmidet_tpu_torch.train.optimizer import build_optimizer
     from mmidet_tpu_torch.train.schedule import ScheduleConfig
     from mmidet_tpu_torch.train.step import init_state, make_train_step
@@ -945,7 +945,7 @@ def _train_steps(model, batch, steps=2):
     opt, _ = build_optimizer(model, sched, 0.0005, total_batch_size=2,
                              nbs=2)
     state = init_state(model, opt)
-    step = make_train_step(anchors_grid(model.spec))
+    step = make_train_step(anchors_grid(model.spec), remat=remat)
     dev = next(model.parameters()).device
     losses = [step(state, {k: v.to(dev) for k, v in batch.items()})
               for _ in range(steps)]
@@ -1033,3 +1033,148 @@ def test_trainer_evaluates_through_k1_and_k2_on_the_card(cuda, tmp_path,
     assert (k1, k2, k3, k4) == (4 * 2, 2, 0, 0)
     assert np.isfinite(out["epochs"][0]["box"])
     assert next(out["state"].model.parameters()).device.type == "cuda"
+
+
+# ------------------------------------------ mosaic, quad, extras and remat
+# The augmentations on the card against the same functions on the CPU,
+# the same inputs and draws: gathers, products and sums in the same order
+# in f32 (1e-5 of values in [0, 1]); the general warp's stages as
+# chip_smoke.py's mosaic_gate gates them (``general_warp_gate``); labels
+# 1e-4
+def _cpu_and_card(tree, cuda):
+    if isinstance(tree, dict):
+        return {k: _cpu_and_card(v, cuda) for k, v in tree.items()}
+    return tree.to(cuda)
+
+
+def _close(got, want, atol):
+    if isinstance(want, (tuple, list)):
+        for g, w in zip(got, want):
+            _close(g, w, atol)
+    elif isinstance(want, dict):
+        for k in want:
+            _close(got[k], want[k], atol)
+    elif want.dtype == torch.bool or not want.is_floating_point():
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("branch", ["default", "general"])
+def test_mosaic_augment_on_the_card_matches_the_cpu(cuda, branch):
+    import dataclasses
+
+    from mmidet_tpu_torch.data import augment as A
+    hyp = A.AugmentHyp(flipud=0.5)
+    if branch == "general":
+        hyp = dataclasses.replace(hyp, degrees=10.0, shear=2.0)
+    gen = torch.Generator().manual_seed(0)
+    b, s, t = 4, 96, 8
+    batch = {"rgb4": torch.rand(b, 4, s, s, 3, generator=gen),
+             "ir4": torch.rand(b, 4, s, s, 3, generator=gen),
+             "labels4": torch.cat([torch.randint(0, 3, (b, 4, t, 1),
+                                                 generator=gen).float(),
+                                   0.2 + 0.5 * torch.rand(b, 4, t, 4,
+                                                          generator=gen)],
+                                  -1),
+             "mask4": torch.rand(b, 4, t, generator=gen) < 0.7,
+             "pads4": torch.tensor([[0., 0., 96., 96.], [8., 0., 80., 96.],
+                                    [0., 12., 96., 72.],
+                                    [20., 4., 56., 88.]]).expand(b, 4, 4)}
+    draws = A.mosaic_draws(b, s, hyp, gen)
+    args = [batch[k] for k in ("rgb4", "ir4", "labels4", "mask4")]
+    want = A.augment_pair_mosaic(*args, draws, s, hyp, 16,
+                                 pads4=batch["pads4"])
+    got = A.augment_pair_mosaic(*(a.to(cuda) for a in args),
+                                _cpu_and_card(draws, cuda), s, hyp, 16,
+                                pads4=batch["pads4"].to(cuda))
+    if branch == "default":
+        _close(got[:2], want[:2], 1e-5)
+    else:
+        smoke = _chip_smoke()
+        err, rec = smoke.general_warp_gate(
+            torch, A, batch, _cpu_and_card(batch, cuda), draws,
+            [g.cpu() for g in got], want)
+        assert err <= smoke.MOSAIC_IMG_TOL and \
+            rec["warp_max_abs_err"] <= smoke.MOSAIC_WARP_TOL, (err, rec)
+    _close(got[2:], want[2:], 1e-4)
+    assert want[3].any()
+
+
+def test_quad_and_extras_on_the_card_match_the_cpu(cuda):
+    from mmidet_tpu_torch.data import augment as A
+    gen = torch.Generator().manual_seed(1)
+    img = torch.rand(8, 32, 48, 3, generator=gen)
+    labels = torch.rand(8, 5, 5, generator=gen)
+    mask = torch.rand(8, 5, generator=gen) < 0.7
+    xy = 30 * torch.rand(8, 5, 2, generator=gen)
+    boxes = torch.cat([xy, xy + 2 + 10 * torch.rand(8, 5, 2, generator=gen)],
+                      -1)
+    tiles9 = torch.rand(2, 9, 16, 16, 3, generator=gen)
+    cases = {
+        "quad": (A.quad_batch, (img[:, :, :32], img[:, :, 16:], labels,
+                                mask, A.quad_draws(2, gen))),
+        "mixup": (A.mixup, (img, labels, mask, img.flip(2), labels, mask,
+                            A.mixup_draws(8, gen))),
+        "cutout": (A.cutout, (img, A.cutout_draws(8, 32, 48, gen), boxes,
+                              mask)),
+        "clahe": (A.hist_equalize, (img,)),
+        "equalize": (lambda x: A.hist_equalize(x, clahe=False), (img,)),
+        "mosaic9": (A.mosaic9, (tiles9, torch.rand(2, 9, 3, 5, generator=gen),
+                                torch.ones(2, 9, 3, dtype=torch.bool),
+                                A.mosaic9_draws(2, 16, gen), 16)),
+        "replicate": (A.replicate_labels, (img, boxes, labels[..., 0], mask,
+                                           A.replicate_draws(8, gen)))}
+    for name, (fn, args) in cases.items():
+        want = fn(*args)
+        got = fn(*(_cpu_and_card(a, cuda) if isinstance(a, (torch.Tensor,
+                                                           dict)) else a
+                   for a in args))
+        _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_step_on_the_card_matches_the_plain_step(cuda, remat):
+    """f32, TF32 off: a remat step (yolov5s_gpt4: dropout 0.1) from the
+    same weights, batch and seed as the plain step; BN counts once."""
+    import copy
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    torch.manual_seed(0)
+    base = TwoStreamDetector(get_model_spec("yolov5s_gpt4", nc=2),
+                             aux_mode="reference").to(cuda)
+    gen = torch.Generator().manual_seed(2)
+    targets = torch.zeros(2, 4, 5)
+    targets[:, :2] = torch.tensor([[1, 0.5, 0.5, 0.3, 0.4],
+                                   [0, 0.3, 0.3, 0.1, 0.2]])
+    batch = {"rgb": torch.rand(2, 96, 96, 3, generator=gen),
+             "ir": torch.rand(2, 96, 96, 3, generator=gen),
+             "targets": targets, "mask": torch.arange(4).expand(2, 4) < 2}
+    out = {}
+    for r in ("", remat):
+        model = copy.deepcopy(base)
+        torch.manual_seed(3)
+        _train_steps(model, batch, steps=1, remat=r)
+        out[r] = model.state_dict()
+    for k, v in out[""].items():
+        if v.is_floating_point():
+            assert float((out[remat][k] - v).abs().max()) <= 1e-5 * max(
+                1.0, float(v.abs().max())), k
+        else:
+            assert torch.equal(out[remat][k], v), k
+    assert int(out[remat]["model.0.conv.bn.num_batches_tracked"]) == 1
+
+
+def test_trainer_with_mosaic_quad_and_multi_scale_on_the_card(cuda,
+                                                              tmp_path):
+    """One epoch of ``train`` on the card with its defaults (mosaic on),
+    ``quad`` and ``multi_scale``: the batches reach the steps at twice
+    the size, regrouped by 4, at a drawn size."""
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    from mmidet_tpu_torch.train import trainer
+    data = make_synthetic_pair_dataset(str(tmp_path / "d"), n=8, img=64)
+    out = trainer.train(trainer.TrainConfig(
+        model="yolov5s_add", data=data, epochs=1, batch_size=4,
+        img_size=64, workdir=str(tmp_path / "run"), quad=True,
+        multi_scale=True, workers=0))
+    assert out["epochs"][0]["batches"] == 2
+    assert np.isfinite(out["epochs"][0]["box"])

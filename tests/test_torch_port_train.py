@@ -497,14 +497,11 @@ def test_trainer_end_to_end_against_jax(data_yaml, tmp_path, add_pair,
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path):
     base = trainer.TrainConfig(data="unused.yaml",
                                workdir=str(tmp_path / "x"))
-    for kw, item in (({}, "A14"),  # mosaic by default
-                     ({"mosaic_prob": 0.0, "quad": True}, "A14"),
-                     ({"mosaic_prob": 0.0, "rect": True}, "A14"),
-                     ({"mosaic_prob": 0.0, "multi_scale": True}, "A14"),
-                     ({"mosaic_prob": 0.0, "mesh": "on"}, "A13"),
-                     ({"mosaic_prob": 0.0, "remat": "dots"}, "A13"),
-                     ({"mosaic_prob": 0.0, "image_weights": True}, "A15"),
-                     ({"mosaic_prob": 0.0, "bucket": "gs://b"}, "A15"),
-                     ({"mosaic_prob": 0.0, "bbox_interval": 1}, "A15")):
+    for kw, item in (({"mesh": "on"}, "A13"), ({"n_model": 2}, "A13"),
+                     ({"image_weights": True}, "A15"),
+                     ({"use_wandb": True}, "A15"),
+                     ({"log_artifacts": True}, "A15"),
+                     ({"bucket": "gs://b"}, "A15"),
+                     ({"bbox_interval": 1}, "A15")):
         with pytest.raises(NotImplementedError, match=item):
             trainer.train(dataclasses.replace(base, **kw), device="cpu")
