@@ -88,20 +88,42 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      counted as ``train_path``'s; ``remat``: one bf16 micro-step of the flagship at 640, batch
      8, with remat "", "dots" and "full" (ms, peak memory), and in f32 at
      128 px each remat step against the plain one;
-  13. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
+  13. ``serve_path``: the serving front end as a user runs it: the
+     flagship from ``cli.val.load_model_and_vars`` (bf16, K3 + K4 + K2),
+     conditioned, in a ``BatchingService`` (max_batch 16, 3 ms) behind a
+     ``ThreadingHTTPServer``, 16 distinct 640x640 JPEG pairs
+     (``serve_bench``'s content, shifted); 16 requests at once with every
+     kernel call in the dispatcher held against its plain version, then
+     each pair alone: the same records; timed through ``serve_bench``'s
+     closed loop, on a service at the serve CLI's default confidence
+     threshold, at concurrency 1 (32 requests: p50/p99) and 32 (256:
+     req/s, p50/p99, batch fill, the dispatcher's ms a batch and busy
+     share), launches counted (K3 1 and K4 4 a forward, K2 1 a batch);
+  14. ``int8_path``: ``serve --int8``'s calibration (``_calibrate_int8``)
+     of that model on 4 of the pairs; the quantized flagship at batch 16
+     with every K3, K4 and K2 call checked and the launches counted; its
+     predictions against the float deploy's (printed); 16 requests through
+     a ``BatchingService`` on it; its forward against the float one, in
+     turns;
+  15. ``hub_path``: ``hub.yolov5s_gpt4`` on 4 images of 640x512, plainly
+     and with TTA (K1 4 a forward, K3 1, K2 1 a call), each call checked,
+     the records against the same model's plain versions on the card;
+     ``export_deploy_bundle``, ``hub.custom`` and ``attempt_load_ensemble``
+     of two bundles, each answering;
+  16. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
      version, with kernel, plain, cuDNN and bound times, TFLOP/s, the
      persistent grid (blocks, tiles, shared memory a block) and ptxas's
      registers and spills;
-  14. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
+  17. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
      and ``probe_cem_fb``, each body against its plain version, timed
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  15. the ``kernels`` summary line, the card line, and the final
+  18. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-14) runs with every launch count set to 0 just before it and
+Every path (8-17) runs with every launch count set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
@@ -1083,12 +1105,13 @@ def unprepared(stacked: dict) -> dict:
 
 @contextlib.contextmanager
 def plain_versions(torch):
-    """The flagship's kernels (K3, K4, K2) replaced by their plain PyTorch
-    versions, on the card: the same rounding points, the order of sums
-    aside."""
+    """The kernels of the model paths (K3, K4, K1, K2) replaced by their
+    plain PyTorch versions, on the card: the same rounding points, the
+    order of sums aside."""
     from unittest import mock
 
-    from mmidet_tpu_torch.nn import cem_cuda, fusion, fusion_cuda
+    from mmidet_tpu_torch.nn import (cem_cuda, fusion, fusion_cuda,
+                                     transformer_cuda)
     from mmidet_tpu_torch.ops import nms as nms_mod
     from mmidet_tpu_torch.ops import nms_cuda
 
@@ -1098,8 +1121,13 @@ def plain_versions(torch):
 
     def cem(x, *params, pack=None):
         return cem_cuda.fused_cem_reference(x, *params)
+
+    def tt(x, stacked, num_heads=8):
+        return transformer_cuda.fused_token_transformer_reference(
+            x, unprepared(stacked), num_heads)
     with mock.patch.object(fusion, "fused_gpt_merge", merge), \
             mock.patch.object(cem_cuda, "fused_cem", cem), \
+            mock.patch.object(fusion, "fused_token_transformer", tt), \
             mock.patch.object(nms_mod, "nms_greedy",
                               nms_cuda.nms_greedy_reference):
         yield
@@ -1846,6 +1874,367 @@ def phase_train_f32_gate(torch, dev, card: str):
     return rec
 
 
+# ------------------------------------------------------------ phases 13-15
+SERVE_BATCH = 16                # BatchingService's max_batch on the card
+SERVE_PAIRS = 16                # distinct JPEG pairs the requests carry
+# concurrency 16 against concurrency 1: the same fixed-shape program, a
+# pair at another row of the batch; boxes in px, confidences relative
+SERVE_BOX_TOL = 1.0
+SERVE_CONF_RTOL = 1e-3
+SERVE_DATA = ROOT / "runs" / "chip_smoke_serve"  # git-ignored; removed after
+# the services' and the hub's confidence threshold here: at the default
+# 0.25 the conditioned seeded flagship keeps too few boxes for the record
+# comparisons to mean anything
+SERVE_CONF = 0.01
+# serve_path's timed loops: the serve CLI's default threshold, so that the
+# responses' JSON work on the host is what a default server does
+SERVE_TIMED_CONF = 0.25
+HUB_IMAGES = 4                  # hub_path: images of 640x512
+# hub_path, the kernel route's records against the plain versions' on the
+# card: K1 sits at its plain version's own CPU-card spread (1.3% of max
+# |plain|), which moves boxes by a few px and scores by a few percent, so
+# records near the threshold or in an NMS tie come and go (on an H100:
+# 87% matched); a fault in a kernel matches next to none
+HUB_MATCH_MIN = 0.75
+
+
+def serve_pairs():
+    """``serve_bench``'s JPEG pair content at 640, rolled sideways per
+    pair: 16 distinct pairs, and each as a JSON payload."""
+    from mmidet_tpu_torch.tools import serve_bench as sb
+    pairs = [sb._jpeg_pair(640, shift=37 * k) for k in range(SERVE_PAIRS)]
+    return pairs, [sb.json_payload(*p) for p in pairs]
+
+
+def letterboxed(torch, pairs, dev):
+    """The pairs decoded and letterboxed as the service does: (rgb, ir),
+    one batch each, [0, 1] floats on ``dev``."""
+    import numpy as np
+
+    from mmidet_tpu_torch.deploy.serve import _preprocess
+    return [torch.from_numpy(np.stack([_preprocess(p[k], 640)[0]
+                                       for p in pairs])).to(dev).float()
+            / 255.0 for k in (0, 1)]
+
+
+def record_gap(want: list, got: list) -> dict:
+    """Each request's records against another run's: the same count and
+    classes; the largest box (px) and relative confidence differences."""
+    box = conf = 0.0
+    same = len(want) == len(got)
+    for a, b in zip(want, got):
+        if [r["class"] for r in a] != [r["class"] for r in b]:
+            same = False
+            continue
+        for r, s in zip(a, b):
+            box = max(box, *(abs(r[k] - s[k]) for k in ("xmin", "ymin",
+                                                         "xmax", "ymax")))
+            conf = max(conf, abs(r["confidence"] - s["confidence"])
+                       / r["confidence"])
+    return {"same_counts_and_classes": same, "max_box_diff_px": box,
+            "max_conf_rel_diff": conf, "records": [len(a) for a in want]}
+
+
+def matched_share(want: list, got: list) -> float:
+    """The share of ``got``'s records (over all requests) that have a
+    record of the same class in ``want``'s at IoU >= 0.5."""
+    def iou(a, b):
+        w = min(a["xmax"], b["xmax"]) - max(a["xmin"], b["xmin"])
+        h = min(a["ymax"], b["ymax"]) - max(a["ymin"], b["ymin"])
+        inter = max(w, 0.0) * max(h, 0.0)
+        area = [(r["xmax"] - r["xmin"]) * (r["ymax"] - r["ymin"])
+                for r in (a, b)]
+        return inter / max(area[0] + area[1] - inter, 1e-9)
+    hits = [any(r["class"] == s["class"] and iou(r, s) >= 0.5 for s in w)
+            for w, g in zip(want, got) for r in g]
+    return sum(hits) / max(len(hits), 1)
+
+
+def merge_levels(model) -> int:
+    """The fusion levels a forward of ``model`` runs as K4 (4 in the
+    flagship)."""
+    return sum(bool(getattr(m, "merge_kernel", False))
+               for m in model.modules())
+
+
+def checked_requests(torch, svc, url, payloads, concurrency: int):
+    """The requests at ``concurrency`` (each answered 200, or this
+    raises) with every K3, K4 and K2 call in the dispatcher held against
+    its plain version (``checked_kernels``, the eval path's tolerances),
+    K3 and K2 once and K4 at each fusion level for every batch; returns
+    the records by request and the checks' summary."""
+    from mmidet_tpu_torch.tools import serve_bench as sb
+    checks, paths, answers = [], [], {}
+    svc.batch_log.clear()
+    with checked_kernels(torch, checks, paths):
+        sb._closed_loop(url, payloads, concurrency, len(payloads), answers)
+    nb = len(svc.batch_log)
+    checked = check_summary(checks)
+    calls = {k: v["calls"] for k, v in checked.items()}
+    if not all(v["ok"] for v in checked.values()) or calls != {
+            "fused_cem": nb, "fused_gpt_merge": merge_levels(svc.model) * nb,
+            "nms_greedy": nb}:
+        raise AssertionError(f"a kernel in the dispatcher disagrees with "
+                             f"its plain version or was not checked on "
+                             f"every batch ({nb}): {checked}")
+    return [answers[k] for k in range(len(payloads))], \
+        {"batches": nb, **checked}
+
+
+def phase_serve_path(torch, dev, card: str):
+    """The serving front end as a user runs it: the flagship from
+    ``cli.val.load_model_and_vars`` (BN folded, bf16, K3 + K4 + K2),
+    conditioned, in a ``BatchingService`` (max_batch 16, 3 ms) behind a
+    ``ThreadingHTTPServer``; 16 distinct JPEG pairs at 640.  Untimed: the
+    16 at concurrency 16 with every kernel call checked, then each pair
+    alone; the records must agree.  Timed through ``serve_bench``'s closed
+    loop, on a second service at the serve CLI's default threshold:
+    concurrency 1 (32 requests) and 32 (256), launches counted from 0.
+    Returns the model, the pairs and the record."""
+    from mmidet_tpu_torch.cli import val as val_cli
+    from mmidet_tpu_torch.deploy.serve import BatchingService
+    from mmidet_tpu_torch.tools import serve_bench as sb
+
+    t_phase = time.perf_counter()
+    model, _ = val_cli.load_model_and_vars("yolov5l_fuse3_fourier", "", 6,
+                                           device=dev)
+    pairs, payloads = serve_pairs()
+    condition(torch, model, *letterboxed(torch, pairs[:4], dev))
+    svc = BatchingService(model, [str(i) for i in range(6)], img_size=640,
+                          conf_thres=SERVE_CONF, max_batch=SERVE_BATCH,
+                          max_wait_ms=3.0, device=dev)
+    with sb.serving(svc) as url:
+        by_c16, checked = checked_requests(torch, svc, url, payloads, 16)
+        by_c1 = [sb._post(url, p)[1] for p in payloads]
+    gap = record_gap(by_c1, by_c16)
+    # timed, as a user sees it: launches counted from 0
+    svc = BatchingService(model, [str(i) for i in range(6)], img_size=640,
+                          conf_thres=SERVE_TIMED_CONF,
+                          max_batch=SERVE_BATCH, max_wait_ms=3.0, device=dev)
+    with sb.serving(svc) as url:
+        for p in payloads[:4]:  # warm the HTTP + decode + dispatch path
+            sb._post(url, p)
+        svc.batch_log.clear()
+        torch.cuda.synchronize()
+        zero_counts()
+        answers1 = {}
+        lat1, wall1 = sb._closed_loop(url, payloads, 1, 32, answers1)
+        log1 = list(svc.batch_log)
+        svc.batch_log.clear()
+        lat32, wall32 = sb._closed_loop(url, payloads, 32, 256)
+        log32 = list(svc.batch_log)
+        torch.cuda.synchronize()
+        fw = len(log1) + len(log32)
+        launches = read_counts(fused_cem=fw,
+                               fused_gpt_merge=merge_levels(model) * fw,
+                               nms_greedy=fw)
+    rec = {"phase": "serve_path", "model": "yolov5l_fuse3_fourier",
+           "card": card, "dtype": "bfloat16", "img": 640,
+           "conf_thres": SERVE_CONF, "timed_conf_thres": SERVE_TIMED_CONF,
+           "max_batch": SERVE_BATCH, "max_wait_ms": 3.0,
+           "payload_kib": len(payloads[0]) / 1024, "checked": checked,
+           "c16_vs_c1": gap, "launches": launches, "forwards": fw,
+           "c1": {"requests": len(lat1), "p50_ms": sb.pct(lat1, 50),
+                  "p99_ms": sb.pct(lat1, 99), "req_per_s": len(lat1) / wall1,
+                  "records_per_response": statistics.mean(
+                      len(r) for r in answers1.values()),
+                  **sb.batching_stats(log1, wall1)},
+           "c32": {"requests": len(lat32), "req_per_s": len(lat32) / wall32,
+                   "p50_ms": sb.pct(lat32, 50), "p99_ms": sb.pct(lat32, 99),
+                   **sb.batching_stats(log32, wall32)},
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not gap["same_counts_and_classes"] or not sum(gap["records"]) or \
+            gap["max_box_diff_px"] > SERVE_BOX_TOL or \
+            gap["max_conf_rel_diff"] > SERVE_CONF_RTOL or \
+            len(lat1) != 32 or len(lat32) != 256:
+        raise AssertionError(f"serve_path: {rec}")
+    return model, pairs, payloads, rec
+
+
+def phase_int8_path(torch, dev, card: str, model, pairs, payloads):
+    """The s8-storage deploy of the serve path's flagship: ``serve
+    --int8``'s startup calibration (``_calibrate_int8``) on 4 of the pairs
+    written under the git-ignored ``runs/`` (removed after); at batch 16,
+    every K3, K4 and K2 call held against its plain version and the
+    launches counted; the predictions against the float deploy's (printed,
+    not gated); 16 requests through a ``BatchingService`` on it; the
+    quantized forward timed against the float one, in turns."""
+    import shutil
+
+    from mmidet_tpu_torch.deploy.serve import BatchingService, _calibrate_int8
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+    from mmidet_tpu_torch.tools import serve_bench as sb
+
+    t_phase = time.perf_counter()
+    for k, sub in enumerate(("rgb", "ir")):
+        (SERVE_DATA / sub).mkdir(parents=True, exist_ok=True)
+        for i, p in enumerate(pairs[:4]):
+            (SERVE_DATA / sub / f"{i}.jpg").write_bytes(p[k])
+    try:
+        q_model = _calibrate_int8(model, str(SERVE_DATA / "rgb"),
+                                  str(SERVE_DATA / "ir"), 640)
+    finally:
+        shutil.rmtree(SERVE_DATA, ignore_errors=True)
+    n_scales = sum(k.endswith("out_scale") for k in q_model.state_dict())
+    rgb, ir = letterboxed(torch, pairs, dev)
+    with torch.inference_mode():
+        checks, paths = [], []
+        with checked_kernels(torch, checks, paths):
+            non_max_suppression(q_model(rgb, ir)["pred"].float(),
+                                conf_thres=SERVE_CONF)
+        checked = check_summary(checks)
+        torch.cuda.synchronize()
+        zero_counts()
+        q_pred = q_model(rgb, ir)["pred"].float()
+        dets, valid = non_max_suppression(q_pred, conf_thres=SERVE_CONF)
+        torch.cuda.synchronize()
+        levels = merge_levels(q_model)
+        launches = read_counts(fused_cem=1, fused_gpt_merge=levels,
+                               nms_greedy=1)
+        f_pred = model(rgb, ir)["pred"].float()
+        rel = (q_pred - f_pred).abs() / f_pred.abs().clamp(min=1.0)
+        times = {"float": [], "int8": []}
+        for which in ("float", "int8", "int8", "float"):
+            m = model if which == "float" else q_model
+            times[which].append(time_ms(lambda: m(rgb, ir), reps=10,
+                                        warmup=2))
+    # serving: 16 requests through a BatchingService on the quantized model
+    svc = BatchingService(q_model, [str(i) for i in range(6)], img_size=640,
+                          conf_thres=SERVE_CONF, max_batch=SERVE_BATCH,
+                          max_wait_ms=3.0, device=dev)
+    with sb.serving(svc) as url:
+        served, served_checked = checked_requests(torch, svc, url,
+                                                  payloads, 16)
+    q_ms, f_ms = (statistics.mean(times[k]) for k in ("int8", "float"))
+    rec = {"phase": "int8_path", "model": "yolov5l_fuse3_fourier",
+           "card": card, "dtype": "bfloat16", "batch": rgb.shape[0],
+           "img": 640, "scales": n_scales, "checked": checked,
+           "launches": launches,
+           "kept_per_image": float(valid.sum(1).float().mean()),
+           "vs_float_max_rel": float(rel.max()),
+           "vs_float_mean_rel": float(rel.mean()),
+           "forward_ms_int8": q_ms, "forward_ms_float": f_ms,
+           "forward_ms_turns": times, "int8_over_float": q_ms / f_ms,
+           "served": {"requests": len(served),
+                      "records": [len(r) for r in served],
+                      "checked": served_checked},
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not all(v["ok"] for v in checked.values()) or \
+            {k: v["calls"] for k, v in checked.items()} != {
+                "fused_cem": 1, "fused_gpt_merge": levels,
+                "nms_greedy": 1} or \
+            not bool(torch.isfinite(dets).all()) or len(served) != 16:
+        raise AssertionError(f"int8_path: {rec}")
+    del q_model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hub_records(torch, m, imgs, ir, plain: bool):
+    """``m(imgs, ir)``'s records, through the kernels or, with ``plain``,
+    through their plain versions on the card."""
+    ctx = plain_versions(torch) if plain else contextlib.nullcontext()
+    with ctx:
+        return m(imgs, ir).pandas()
+
+
+def phase_hub_path(torch, dev, card: str):
+    """``hub.yolov5s_gpt4`` as a user calls it (the deploy form on the
+    card: K1 at its four levels, K3, K2), conditioned, on 4 images of
+    640x512, plainly and with ``augment``: launches counted, every K1 and
+    K2 call checked, and the records against the same model's plain
+    versions on the card; then a bundle round trip: ``export_deploy_bundle``
+    of that model, ``hub.custom`` and ``attempt_load_ensemble`` of two
+    bundles, each answering."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from mmidet_tpu_torch import hub
+    from mmidet_tpu_torch.deploy.export import export_deploy_bundle
+    from mmidet_tpu_torch.models.ensemble import attempt_load_ensemble
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+
+    t_phase = time.perf_counter()
+    m = hub.yolov5s_gpt4(nc=6, conf=SERVE_CONF, device=dev)
+    # serve_bench's content (the serve path's pairs), cropped to 640x512
+    pairs, _ = serve_pairs()
+    imgs, ir = ([np.asarray(Image.open(io.BytesIO(p[k])))[:512]
+                 for p in pairs[:HUB_IMAGES]] for k in (0, 1))
+    x, x_ir = (torch.from_numpy(np.stack([
+        np.pad(a, ((64, 64), (0, 0), (0, 0)), constant_values=114)
+        for a in arrs])).to(dev).float() / 255 for arrs in (imgs, ir))
+    condition(torch, m.model, x, x_ir)
+    runs = {}
+    for augment in (False, True):
+        m.augment = augment
+        fw = 3 if augment else 1
+        with torch.inference_mode():
+            checks, paths = [], []
+            with checked_kernels(torch, checks, paths):
+                m(imgs, ir)
+            checked = check_summary(checks)
+            torch.cuda.synchronize()
+            zero_counts()
+            got = m(imgs, ir).pandas()
+            torch.cuda.synchronize()
+            launches = read_counts(fused_token_transformer=4 * fw,
+                                   fused_cem=fw, nms_greedy=1)
+            plain = hub_records(torch, m, imgs, ir, plain=True)
+        gap = {**record_gap(plain, got),
+               "matched_share": matched_share(plain, got)}
+        runs["augment" if augment else "plain"] = {
+            "launches": launches, "checked": checked, "vs_plain": gap}
+        if {k: v["calls"] for k, v in checked.items()} != {
+                "fused_cem": fw, "fused_token_transformer": 4 * fw,
+                "nms_greedy": 1} or \
+                not all(v["ok"] for v in checked.values()) or \
+                gap["matched_share"] < HUB_MATCH_MIN:
+            raise AssertionError(f"hub_path: {runs}")
+    m.augment = False
+    # a bundle round trip on the card
+    bundle = SERVE_DATA / "bundle"
+    try:
+        export_deploy_bundle(str(bundle), m.model, m.model.spec,
+                             names=m.names, img_size=640)
+        custom = hub.custom(str(bundle), conf=SERVE_CONF, device=dev)
+        zero_counts()
+        custom_recs = custom(imgs, ir).pandas()
+        ens = attempt_load_ensemble([str(bundle), str(bundle)], device=dev)
+        with torch.inference_mode():
+            pred = ens(x, x_ir)["pred"]
+            e_dets, e_valid = non_max_suppression(pred.float(),
+                                                  conf_thres=SERVE_CONF)
+        torch.cuda.synchronize()
+        bundle_launches = read_counts(fused_token_transformer=12,
+                                      fused_cem=3, nms_greedy=2)
+    finally:
+        shutil.rmtree(SERVE_DATA, ignore_errors=True)
+    rec = {"phase": "hub_path", "model": "yolov5s_gpt4", "card": card,
+           "images": [HUB_IMAGES, 512, 640], "runs": runs,
+           "custom_vs_hub": record_gap(hub_records(torch, m, imgs, ir,
+                                                   plain=False),
+                                       custom_recs),
+           "ensemble_boxes": list(pred.shape),
+           "ensemble_kept": int(e_valid.sum()),
+           "bundle_launches": bundle_launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not rec["custom_vs_hub"]["same_counts_and_classes"] or \
+            not sum(runs["plain"]["vs_plain"]["records"]) or \
+            rec["custom_vs_hub"]["max_box_diff_px"] > 0 or \
+            pred.shape[1] != 2 * 3 * (80 ** 2 + 40 ** 2 + 20 ** 2) or \
+            not rec["ensemble_kept"] or \
+            not bool(torch.isfinite(e_dets).all()):
+        raise AssertionError(f"hub_path: {rec}")
+    del m, custom, ens
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_p1(torch, dev):
     """P1's entry point as a user runs it (``python -m
     mmidet_tpu_torch.tools.probe_igemm``: batch 128 at 160x160, C = 64 and
@@ -2306,6 +2695,11 @@ def main() -> int:
     train_flags = phase_train_flags_path(torch, dev, name)
     phase_remat(torch, dev, name)
     shutil.rmtree(EVAL_DATA, ignore_errors=True)
+    model, pairs, payloads, serving = phase_serve_path(torch, dev, name)
+    int8 = phase_int8_path(torch, dev, name, model, pairs, payloads)
+    del model
+    torch.cuda.empty_cache()
+    hub_rec = phase_hub_path(torch, dev, name)
     p1, p1_launches = phase_p1(torch, dev)
     p2, p3, probe_launches = phase_p2_p3(torch, dev)
 
@@ -2327,6 +2721,9 @@ def main() -> int:
          "train_flags_eval_launches": sum(
              e["launches"]["fused_token_transformer"]
              for r in train_flags for e in r["evals"]),
+         # hub.yolov5s_gpt4 on 4 images: 4 a forward, 3 forwards with TTA
+         "hub_launches": {k: r["launches"]["fused_token_transformer"]
+                          for k, r in hub_rec["runs"].items()},
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": summed(k1_path, "ms"), "plain_ms": summed(k1_path, "plain_ms"),
          "bound_ms": summed(k1_path, "bound_ms"),
@@ -2337,6 +2734,12 @@ def main() -> int:
          "source": "mmidet_tpu_torch/csrc/nms_greedy.cu",
          "replaces": "mmidet_tpu/ops/nms_pallas.py:82",
          "launches": flagship["nms_greedy"],
+         # one a served batch (timed serve_path runs), one a quantized
+         # batch, one a hub call
+         "serve_launches": serving["launches"]["nms_greedy"],
+         "int8_launches": int8["launches"]["nms_greedy"],
+         "hub_launches": {k: r["launches"]["nms_greedy"]
+                          for k, r in hub_rec["runs"].items()},
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
@@ -2344,6 +2747,10 @@ def main() -> int:
          "source": "mmidet_tpu_torch/csrc/cem.cu",
          "replaces": "mmidet_tpu/nn/cem_pallas.py:280",
          "launches": flagship["fused_cem"],
+         "serve_launches": serving["launches"]["fused_cem"],
+         "int8_launches": int8["launches"]["fused_cem"],
+         "hub_launches": {k: r["launches"]["fused_cem"]
+                          for k, r in hub_rec["runs"].items()},
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
@@ -2352,6 +2759,8 @@ def main() -> int:
          "source": "mmidet_tpu_torch/csrc/gpt_merge.cu",
          "replaces": "mmidet_tpu/nn/fusion_pallas.py:298",
          "launches": flagship["fused_gpt_merge"],
+         "serve_launches": serving["launches"]["fused_gpt_merge"],
+         "int8_launches": int8["launches"]["fused_gpt_merge"],
          "max_abs_err": max(r["max_abs_err"] for r in k4),
          "ms": summed(k4, "ms"), "plain_ms": summed(k4, "plain_ms"),
          "bound_ms": summed(k4, "bound_ms"),

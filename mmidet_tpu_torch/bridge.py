@@ -14,7 +14,11 @@ checkpoint converter computes (``mmidet_tpu/train/checkpoint.py:84-169``,
   * Focus's ``conv_kernel_s2d`` -> ``conv.conv.weight`` (and its folded
     ``conv_bias`` -> ``conv.conv.bias``);
   * BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
-    ``running_mean``/``running_var``, copied as stored.
+    ``running_mean``/``running_var``, copied as stored;
+  * the ``quant`` collection's ``out_scale`` (the s8-storage deploy form)
+    -> the quantized ``ConvBnAct``'s ``out_scale`` buffer; JAX's ``Focus``
+    keeps its scale on its own scope, the port's on the ``ConvBnAct`` it
+    wraps (``l0_Focus/out_scale`` -> ``model.0.conv.out_scale``).
 
 Every leaf must land on exactly one key of matching shape, and every key
 (but BN's ``num_batches_tracked``) must receive one; anything else raises.
@@ -74,6 +78,8 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
             elif s == "sobel_factor":
                 kind = "factor"
                 out.append("sobel_factor")
+            elif s == "out_scale" and i == 0 and head.endswith("_Focus"):
+                out.append("conv.out_scale")
             else:
                 out.append(s)
         elif re.fullmatch(r"m\d+", s):        # C3 repeats / Detect convs
@@ -109,7 +115,7 @@ def from_jax_variables(model: torch.nn.Module, variables: dict) -> dict:
     {port key: flax path} it used."""
     sd = model.state_dict()
     used: dict[str, tuple] = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant"):
         for path, arr in _flatten(variables.get(collection, {})).items():
             key, kind = torch_key(path)
             if key not in sd:

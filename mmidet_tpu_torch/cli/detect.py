@@ -7,7 +7,9 @@ Counterpart of ``mmidet_tpu/cli/detect.py``.  Runs on the card:
     python -m mmidet_tpu_torch.cli.detect --cfg yolov5l_fuse3_fourier \\
         --source1 rgb_dir --source2 ir_dir --weights model.pt
 
-``main(argv, device="cpu")`` runs it on the CPU.
+``main(argv, device="cpu")`` runs it on the CPU.  ``--int8`` runs the
+s8-storage deploy form (``nn/quant.py``), calibrated on the first source
+pair.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import time
 import numpy as np
 import torch
 
-from mmidet_tpu_torch.cli.val import INT8_MESSAGE, load_model_and_vars
+from mmidet_tpu_torch.cli.val import load_model_and_vars
 from mmidet_tpu_torch.data.datasets import discover_images, letterbox_np
 from mmidet_tpu_torch.eval.evaluator import eval_device
 from mmidet_tpu_torch.models.tta import forward_tta
+from mmidet_tpu_torch.nn.quant import make_quant_deploy
 from mmidet_tpu_torch.ops.nms import non_max_suppression
 from mmidet_tpu_torch.utils.general import (increment_path, save_one_box,
                                             set_logging)
@@ -67,7 +70,8 @@ def build_parser():
     p.add_argument("--exist-ok", action="store_true",
                    help="reuse --project/--name without incrementing")
     p.add_argument("--int8", action="store_true",
-                   help="s8-storage quantized deploy (not ported: raises)")
+                   help="s8-storage quantized deploy (scales calibrated "
+                        "on the first source pair, see nn/quant.py)")
     p.add_argument("--int8-clip", type=float, default=1.0,
                    help="calibration absmax clip for --int8")
     return p
@@ -76,8 +80,6 @@ def build_parser():
 def main(argv=None, device="cuda"):
     set_logging()
     args = build_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(INT8_MESSAGE)
     from PIL import Image
     dev = eval_device(device)
     model, spec = load_model_and_vars(args.cfg, args.weights, args.nc,
@@ -92,6 +94,12 @@ def main(argv=None, device="cuda"):
     assert len(rgb_files) == len(ir_files), "paired sources length mismatch"
 
     s = args.img_size
+    if args.int8:
+        calib = [torch.from_numpy(letterbox_np(np.asarray(
+            Image.open(f).convert("RGB")), (s, s))[0]).to(dev)[None].float()
+            / 255.0 for f in (rgb_files[0], ir_files[0])]
+        model = make_quant_deploy(model, [tuple(calib)],
+                                  clip=args.int8_clip)
 
     @torch.inference_mode()
     def infer(lb_rgb, lb_ir):

@@ -8,8 +8,10 @@ Counterpart of ``mmidet_tpu/cli/val.py``.  Runs on the card:
 
 ``main(argv, device="cpu")`` runs it on the CPU (a keyword argument, not
 a flag).  Weights come from a ``.pt`` state dict by the reference's names
-(a bare dict, or ``{"model": sd}`` / ``{"ema": sd}``); without
-``--weights`` the model starts from a seeded fresh init.
+(a bare dict, or ``{"model": sd}`` / ``{"ema": sd}``) or a deploy bundle
+dir (``deploy/export.py``); without ``--weights`` the model starts from a
+seeded fresh init.  ``--int8`` runs the s8-storage deploy form
+(``nn/quant.py``), calibrated on the first val batch.
 """
 
 from __future__ import annotations
@@ -28,19 +30,24 @@ from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.spec import load_yolo_yaml
 from mmidet_tpu_torch.models.zoo import get_model_spec
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
+from mmidet_tpu_torch.nn.quant import make_quant_deploy
 from mmidet_tpu_torch.utils.general import increment_path, set_logging
-
-INT8_MESSAGE = ("--int8: the s8-storage quantized deploy (the JAX package's "
-                "nn/quant.py) is not ported yet (ROADMAP A15)")
 
 
 def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
     """A ``.pt`` holding a state dict by the reference's names: the dict
     itself, or ``{"ema": sd}`` (preferred) / ``{"model": sd}``, as
-    ``mmidet_tpu/train/checkpoint.py:load_torch_checkpoint`` reads it."""
+    ``mmidet_tpu/train/checkpoint.py:load_torch_checkpoint`` reads it; or
+    a deploy bundle dir (``deploy/export.py``), as the JAX package's
+    ``train/trainer.py:188-191`` reads one."""
+    from mmidet_tpu_torch.deploy.export import is_bundle, load_deploy_bundle
     if os.path.isdir(path):
-        raise ValueError(f"{path} is a directory: orbax checkpoints are the "
-                         "JAX package's format; give a .pt state dict")
+        if not is_bundle(path):
+            raise ValueError(f"{path} is a directory without model.json: "
+                             "give a .pt state dict or a deploy bundle "
+                             "(orbax checkpoints are the JAX package's "
+                             "format)")
+        return load_deploy_bundle(path)[1]
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt
     if isinstance(ckpt, dict):
@@ -81,33 +88,70 @@ def kernel_routes(spec, use_cem: bool) -> dict:
             "kernel_fusion": "GPT" in names and not merge}
 
 
+def spec_by_name(model_name: str, nc: int | None = None):
+    """A zoo name or a model YAML path -> its ``ModelSpec``."""
+    return load_yolo_yaml(model_name, nc=nc) \
+        if model_name.endswith((".yaml", ".yml")) \
+        else get_model_spec(model_name, nc=nc)
+
+
+def build_model(spec, sd: dict | None = None, use_cem: bool = True,
+                seed: int = 0, **flags) -> TwoStreamDetector:
+    """The detector in the form ``sd`` holds (a seeded init when ``sd`` is
+    None): unfused, BN-folded (no BN entry), or quantized (``out_scale``
+    buffers), with ``sd`` loaded (``load_weights``); on the CPU, in f32.
+    ``flags`` are the detector's kernel flags."""
+    fused = sd is not None and not any(
+        k.endswith("running_mean") for k in sd)
+    quant = sd is not None and any(k.endswith(".out_scale") for k in sd)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = TwoStreamDetector(spec, use_cem=use_cem, fused=fused,
+                                  quant=quant, **flags)
+    if sd is not None:
+        missing = load_weights(model, sd)
+        if missing:
+            logging.warning("%d of the model's tensors are not in the "
+                            "weights and keep their init, e.g. %s",
+                            len(missing), missing[:3])
+    return model
+
+
+def deploy_model(spec, sd: dict | None, use_cem: bool, dev: torch.device,
+                 dtype: torch.dtype | None = None,
+                 seed: int = 0) -> TwoStreamDetector:
+    """``build_model`` in the deploy form on ``dev``: BN folded, eval mode;
+    on the card ``dtype`` bf16 by default and the kernel routes of
+    ``kernel_routes``, on the CPU the plain routes in f32 by default."""
+    flags = kernel_routes(spec, use_cem) if dev.type == "cuda" else {}
+    model = build_model(spec, sd, use_cem, seed, **flags)
+    if dtype is None:
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    return fold_batchnorm(model.eval()).to(dev, dtype)
+
+
 def load_model_and_vars(model_name: str, weights: str, nc: int,
                         dtype: torch.dtype | None = None,
                         use_cem: bool = True, device="cuda", seed: int = 0):
-    """Build the model, load ``weights`` (a ``.pt`` state dict; "" for a
-    seeded fresh init), fold BN and return (model, spec) on ``device``.
-    The JAX package returns (model, variables, spec); here the weights live
-    in the module.  On the card the model is the deploy form: BN folded,
-    ``dtype`` bf16 by default, and the kernel routes of ``kernel_routes``;
-    on the CPU the plain routes in f32 by default."""
+    """Build the model, load ``weights`` (a ``.pt`` state dict or a deploy
+    bundle dir; "" for a seeded fresh init), fold BN and return (model,
+    spec) on ``device`` (``deploy_model``).  The JAX package returns
+    (model, variables, spec); here the weights live in the module."""
     dev = eval_device(device)
-    spec = load_yolo_yaml(model_name, nc=nc) \
-        if model_name.endswith((".yaml", ".yml")) \
-        else get_model_spec(model_name, nc=nc)
-    flags = kernel_routes(spec, use_cem) if dev.type == "cuda" else {}
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = TwoStreamDetector(spec, use_cem=use_cem, **flags)
-    if weights:
-        missing = load_weights(model, load_state_dict_file(weights))
-        if missing:
-            logging.warning("%d of the model's tensors are not in %s and "
-                            "keep their init, e.g. %s", len(missing),
-                            weights, missing[:3])
-    if dtype is None:
-        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    model = fold_batchnorm(model.eval()).to(dev, dtype)
-    return model, spec
+    spec = spec_by_name(model_name, nc)
+    sd = load_state_dict_file(weights) if weights else None
+    return deploy_model(spec, sd, use_cem, dev, dtype, seed), spec
+
+
+def apply_int8(model, ds, img_size: int, clip: float = 1.0):
+    """The s8-storage twin of ``model``, calibrated on the first val batch
+    of at most 4 pairs (JAX ``cli/val.py:_apply_int8``)."""
+    dev = next(model.parameters()).device
+    calib = next(iter(PairedLoader(ds, min(4, len(ds)), img_size,
+                                   drop_last=False, scaleup=False)))
+    rgb, ir = (torch.from_numpy(calib[k]).to(dev).float() / 255.0
+               for k in ("rgb", "ir"))
+    return make_quant_deploy(model, [(rgb, ir)], clip=clip)
 
 
 def build_parser():
@@ -148,7 +192,9 @@ def build_parser():
     p.add_argument("--name", type=str, default="exp")
     p.add_argument("--exist-ok", action="store_true")
     p.add_argument("--int8", action="store_true",
-                   help="s8-storage quantized deploy (not ported: raises)")
+                   help="s8-storage quantized deploy (activations stored "
+                        "as int8; scales calibrated on the first val "
+                        "batch, see nn/quant.py)")
     p.add_argument("--int8-clip", type=float, default=1.0,
                    help="calibration absmax clip for --int8")
     return p
@@ -157,8 +203,6 @@ def build_parser():
 def main(argv=None, device="cuda"):
     set_logging()
     args = build_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(INT8_MESSAGE)
     data = load_data_yaml(args.data)
     nc = 1 if args.single_cls else int(data["nc"])
     names = ["item"] if args.single_cls else data.get("names")
@@ -170,6 +214,8 @@ def main(argv=None, device="cuda"):
         for lab in ds.labels:
             if len(lab):
                 lab[:, 0] = 0.0
+    if args.int8:
+        model = apply_int8(model, ds, args.img_size, clip=args.int8_clip)
 
     if args.task in ("val", "test"):
         out_dir = None

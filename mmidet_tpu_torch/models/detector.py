@@ -26,6 +26,12 @@ names.
 Single-stream models (reference ``models/yolo.py``) run through the same
 executor: a spec without ``-4`` refs, ``use_cem=False`` and ``ir=None``.
 
+``quant=True`` is the s8-storage deploy form (``mmidet_tpu_torch.nn.quant``,
+JAX ``detector.py:53-58``): the conv-stack rows (``_QUANT_CAPABLE``) pass
+int8 ``QTensor``s between them, and every other row (the fusion blocks, so
+the kernels still read floats, ``Concat``, ``Add``, ``Add2``, ``Upsample``,
+``Detect``) dequantizes its inputs to the model's dtype on entry.
+
 Public layout is the JAX package's: images NHWC ``(B, H, W, 3)`` in [0, 1];
 ``pred`` ``(B, N, 5+nc)``; ``train_outs`` per level ``(B, na, ny, nx, no)``.
 Inside, tensors are NCHW.
@@ -43,12 +49,15 @@ from mmidet_tpu_torch.nn import layers as L
 from mmidet_tpu_torch.nn.cem import ContourEnhance
 from mmidet_tpu_torch.nn.fusion import (CrossModalTransformer,
                                         FourierPatternFusion, PatternFusion)
+from mmidet_tpu_torch.nn.quant import deq_tree
 from mmidet_tpu_torch.nn.resize import nearest_upsample
 
 AUX_WEIGHTS = (0.1, 1.0, 0.06, 0.03)  # a1..a4, yolo_test.py:170-178
 _PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample", "nn.Upsample"}
 _FUSION = {"GPT": CrossModalTransformer, "GPT1": PatternFusion,
            "GPT1_fourier": FourierPatternFusion}
+# rows that take and give int8 QTensors in the s8-storage deploy form
+_QUANT_CAPABLE = {"Conv", "Focus", "Bottleneck", "C3", "SPP"}
 
 
 def _nhwc(t):
@@ -71,13 +80,15 @@ class TwoStreamDetector(nn.Module):
     ``kernel_merge``: every fusion level runs as the fused GPT-merge kernel
     and its two ``Add2`` rows become selects (``merge_fusion_kernel``); it
     takes the place of ``kernel_fusion`` at those levels.
+    ``quant``: the s8-storage deploy form (module docstring); needs the
+    fused model and each conv's calibrated ``out_scale``.
     ``truncate_at``: stop after that layer and return ``{"trunc": out}``
     (NHWC), for layer-by-layer comparison."""
 
     def __init__(self, spec: ModelSpec, aux_mode: str = "off",
                  use_cem: bool = True, fused: bool = False,
                  kernel_fusion: bool = False, kernel_cem: bool = False,
-                 kernel_merge: bool = False,
+                 kernel_merge: bool = False, quant: bool = False,
                  truncate_at: int | None = None):
         super().__init__()
         if aux_mode not in ("off", "reference", "full"):
@@ -103,13 +114,13 @@ class TwoStreamDetector(nn.Module):
             m, a, i = rl.name, rl.args, rl.index
             c1 = ch_of(rl.f if isinstance(rl.f, int) else rl.f[0], i)
             if m == "Conv":
-                mod = L.ConvBnAct(c1, a[0], *a[1:], fused=fused)
+                mod = L.ConvBnAct(c1, a[0], *a[1:], fused=fused, quant=quant)
             elif m == "Focus":
-                mod = L.Focus(c1, a[0], *a[1:], fused=fused)
+                mod = L.Focus(c1, a[0], *a[1:], fused=fused, quant=quant)
             elif m == "C3":
-                mod = L.C3(c1, a[0], *a[1:], fused=fused)
+                mod = L.C3(c1, a[0], *a[1:], fused=fused, quant=quant)
             elif m == "SPP":
-                mod = L.SPP(c1, a[0], *a[1:], fused=fused)
+                mod = L.SPP(c1, a[0], *a[1:], fused=fused, quant=quant)
             elif m in _FUSION:
                 # GPT1*'s pattern loss is computed only for the aux losses,
                 # which also need the unmerged outputs
@@ -157,6 +168,8 @@ class TwoStreamDetector(nn.Module):
             inp = [get(j) for j in rl.f] if isinstance(rl.f, tuple) \
                 else get(rl.f)
             m = rl.name
+            if m not in _QUANT_CAPABLE:  # everything else reads floats
+                inp = deq_tree(inp, dt)
             if m == "Concat":
                 x = torch.cat(inp, 1)
             elif m == "Add":
@@ -206,5 +219,5 @@ class TwoStreamDetector(nn.Module):
             if rl.index in self.save:
                 y[rl.index] = x
             if self.truncate_at is not None and rl.index == self.truncate_at:
-                return {"trunc": _nhwc(x)}
+                return {"trunc": _nhwc(deq_tree(x, dt))}
         raise ValueError("spec has no Detect layer")

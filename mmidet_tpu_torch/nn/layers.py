@@ -11,6 +11,13 @@ JAX variables bridge onto them one to one (``mmidet_tpu_torch.bridge``).
 ``fused=True`` is the deploy form: the conv carries a bias and there is no
 BatchNorm (``mmidet_tpu_torch.nn.fuse.fold_batchnorm`` turns an unfused
 module into it).
+
+``quant=True`` is the s8-storage deploy form (``mmidet_tpu_torch.nn.quant``):
+a fused ``ConvBnAct`` in eval mode returns a ``QTensor`` quantized with its
+``out_scale`` buffer, and every module here dequantizes what it takes in
+(``Bottleneck``'s residual and ``C3``'s concat both operands, ``SPP`` after
+``cv1``, before the pools).  Train mode and unfused modules ignore the
+flag, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mmidet_tpu_torch.nn.quant import QTensor, dequantize, quantize
 
 # YOLOv5's BatchNorm settings (reference utils/torch_utils.py
 # initialize_weights): eps 1e-3, torch momentum 0.03
@@ -89,21 +98,51 @@ def batchnorm(c: int) -> BatchNorm2d:
 
 
 class ConvBnAct(nn.Module):
-    """Conv2d(bias=False) + BatchNorm + activation. Ref: common.py:108."""
+    """Conv2d(bias=False) + BatchNorm + activation. Ref: common.py:108.
+
+    With ``quant`` the module holds an ``out_scale`` buffer (f32, see
+    ``_apply``) and, fused and in eval mode, returns its activation as a
+    ``QTensor``."""
 
     def __init__(self, c1: int, c2: int, k=1, s: int = 1, p=None,
-                 g: int = 1, act: str | None = "silu", fused: bool = False):
+                 g: int = 1, act: str | None = "silu", fused: bool = False,
+                 quant: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g,
                               bias=fused)
         self.bn = None if fused else batchnorm(c2)
         self.act = act_fn(act)
+        self.quant = False
+        if quant:
+            self.set_quant(1.0)
+
+    def set_quant(self, scale) -> None:
+        """Quantize this module's output with ``scale`` from now on."""
+        self.quant = True
+        self.register_buffer("out_scale", torch.as_tensor(
+            scale, dtype=torch.float32,
+            device=self.conv.weight.device).reshape(()).clone())
+
+    def _apply(self, fn, recurse=True):
+        # the scale stays f32 when the model is cast (``.to(bfloat16)``),
+        # as the JAX package's quant collection does: only its device moves
+        s = self._buffers.get("out_scale")
+        out = super()._apply(fn, recurse)
+        if s is not None:
+            self._buffers["out_scale"] = s.to(
+                self._buffers["out_scale"].device)
+        return out
 
     def forward(self, x):
+        if isinstance(x, QTensor):
+            x = dequantize(x, self.conv.weight.dtype)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
-        return self.act(x)
+        x = self.act(x)
+        if self.quant and self.bn is None and not self.training:
+            return quantize(x, self.out_scale)
+        return x
 
 
 class Focus(nn.Module):
@@ -113,11 +152,14 @@ class Focus(nn.Module):
     weight is the JAX ``conv_kernel_s2d`` in OIHW."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
-                 act: str | None = "silu", fused: bool = False):
+                 act: str | None = "silu", fused: bool = False,
+                 quant: bool = False):
         super().__init__()
-        self.conv = ConvBnAct(4 * c1, c2, k, s, act=act, fused=fused)
+        self.conv = ConvBnAct(4 * c1, c2, k, s, act=act, fused=fused,
+                              quant=quant)
 
     def forward(self, x):
+        x = dequantize(x, self.conv.conv.weight.dtype)
         return self.conv(torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
                                     x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]],
                                    1))
@@ -127,33 +169,40 @@ class Bottleneck(nn.Module):
     """1x1 -> 3x3 with optional residual. Ref: common.py:602."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
-                 e: float = 0.5, fused: bool = False):
+                 e: float = 0.5, fused: bool = False, quant: bool = False):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = ConvBnAct(c1, c_, 1, 1, fused=fused)
-        self.cv2 = ConvBnAct(c_, c2, 3, 1, g=g, fused=fused)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1, fused=fused, quant=quant)
+        self.cv2 = ConvBnAct(c_, c2, 3, 1, g=g, fused=fused, quant=quant)
         self.add = shortcut and c1 == c2
 
     def forward(self, x):
         y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        if not self.add:
+            return y
+        dt = self.cv2.conv.weight.dtype
+        return dequantize(x, dt) + dequantize(y, dt)
 
 
 class C3(nn.Module):
     """CSP bottleneck with 3 convs. Ref: common.py:637."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
-                 g: int = 1, e: float = 0.5, fused: bool = False):
+                 g: int = 1, e: float = 0.5, fused: bool = False,
+                 quant: bool = False):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = ConvBnAct(c1, c_, 1, 1, fused=fused)
-        self.cv2 = ConvBnAct(c1, c_, 1, 1, fused=fused)
-        self.cv3 = ConvBnAct(2 * c_, c2, 1, fused=fused)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1, fused=fused, quant=quant)
+        self.cv2 = ConvBnAct(c1, c_, 1, 1, fused=fused, quant=quant)
+        self.cv3 = ConvBnAct(2 * c_, c2, 1, fused=fused, quant=quant)
         self.m = nn.Sequential(*[Bottleneck(c_, c_, shortcut, g, e=1.0,
-                                            fused=fused) for _ in range(n)])
+                                            fused=fused, quant=quant)
+                                 for _ in range(n)])
 
     def forward(self, x):
-        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+        dt = self.cv3.conv.weight.dtype
+        return self.cv3(torch.cat([dequantize(self.m(self.cv1(x)), dt),
+                                   dequantize(self.cv2(x), dt)], 1))
 
 
 class SPP(nn.Module):
@@ -162,14 +211,15 @@ class SPP(nn.Module):
     pixels, as ``_max_pool_same`` in the JAX package."""
 
     def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13),
-                 fused: bool = False):
+                 fused: bool = False, quant: bool = False):
         super().__init__()
         c_ = c1 // 2
-        self.cv1 = ConvBnAct(c1, c_, 1, 1, fused=fused)
-        self.cv2 = ConvBnAct(c_ * (len(k) + 1), c2, 1, 1, fused=fused)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1, fused=fused, quant=quant)
+        self.cv2 = ConvBnAct(c_ * (len(k) + 1), c2, 1, 1, fused=fused,
+                             quant=quant)
         self.k = tuple(k)
 
     def forward(self, x):
-        x = self.cv1(x)
+        x = dequantize(self.cv1(x), self.cv1.conv.weight.dtype)
         return self.cv2(torch.cat(
             [x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.k], 1))

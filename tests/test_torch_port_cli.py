@@ -104,11 +104,17 @@ def test_val_cli_options(two_pairs, args):
     assert 0.0 <= res.map <= 1.0 and res.nc == 2
 
 
-def test_val_cli_refuses_int8_and_a_directory(data_yaml, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        val.main(["--data", data_yaml, "--int8"], device="cpu")
+def test_val_cli_refuses_int8_and_a_directory(two_pairs, tmp_path):
+    """``--int8`` used to be refused; it runs now (the s8-storage deploy,
+    held against the JAX package in test_torch_port_quant.py).  A
+    directory is refused unless it is a deploy bundle (its ``model.json``):
+    orbax checkpoints are the JAX package's format."""
+    res = val.main(["--cfg", "yolov5s_add", "--data", two_pairs[0],
+                    "--batch-size", "2", "--img-size", "64", "--int8",
+                    "--int8-clip", "0.9"], device="cpu")
+    assert 0.0 <= res.map <= 1.0 and res.nc == 2
     with pytest.raises(ValueError, match="orbax"):
-        val.main(["--cfg", "yolov5s_add", "--data", data_yaml,
+        val.main(["--cfg", "yolov5s_add", "--data", two_pairs[0],
                   "--weights", str(tmp_path)], device="cpu")
 
 
@@ -151,8 +157,11 @@ def test_detect_cli_options(two_pairs, tmp_path):
     assert again != first and again.endswith("exp2")
     reused = detect.main(common + ["--exist-ok", "--nosave"], device="cpu")
     assert reused == first
-    with pytest.raises(NotImplementedError, match="not ported"):
-        detect.main(common + ["--int8"], device="cpu")
+    # --int8, once refused, runs (the s8-storage deploy; JAX's files in
+    # test_torch_port_quant.py)
+    int8 = detect.main(common + ["--int8", "--nosave", "--save-txt"],
+                       device="cpu")
+    assert int8.endswith("exp3") and len(os.listdir(int8)) == 2
 
 
 @pytest.mark.parametrize("wrap", ["bare", "model", "ema"])

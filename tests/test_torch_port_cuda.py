@@ -1178,3 +1178,135 @@ def test_trainer_with_mosaic_quad_and_multi_scale_on_the_card(cuda,
         multi_scale=True, workers=0))
     assert out["epochs"][0]["batches"] == 2
     assert np.isfinite(out["epochs"][0]["box"])
+
+
+# ---------------------------------------------------------- the serving path
+def _png(img):
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def _records_close(got, want, box_px, conf_rtol):
+    """The same records: count, classes, boxes within ``box_px``,
+    confidences within ``conf_rtol``; swaps among confidences equal within
+    the tolerance allowed."""
+    assert len(got) == len(want) and len(want) > 0
+    left = list(want)
+    for g in got:
+        match = [j for j, w in enumerate(left) if g["class"] == w["class"]
+                 and all(abs(g[k] - w[k]) <= box_px
+                         for k in ("xmin", "ymin", "xmax", "ymax"))
+                 and abs(g["confidence"] - w["confidence"])
+                 <= conf_rtol * w["confidence"]]
+        assert match, g
+        left.pop(match[0])
+
+
+def _conditioned(model, size=64, seed=0):
+    """The model's weights conditioned to unit activations (``chip_smoke.py``
+    ``condition``), so that scores follow the image."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(2, size, size, 6, generator=gen).to(
+        next(model.parameters()).device)
+    _chip_smoke().condition(torch, model, x[..., :3], x[..., 3:])
+    return model
+
+
+def test_batching_service_on_the_card_matches_detection_service(cuda):
+    """A tiny two-stream model (f32) through K3 and K2 on the card: a
+    padded batch (3 of 4) and a full one, each request's records equal to
+    ``DetectionService``'s on the card (the batch of 4 and the batch of 1
+    sum in another order: boxes within 1e-2 px, confidences 1e-3)."""
+    import threading
+
+    from mmidet_tpu_torch.deploy.serve import BatchingService
+    torch.manual_seed(0)
+    model = _conditioned(fold_batchnorm(TwoStreamDetector(
+        two_stream_spec("t", "add", nc=2), kernel_cem=True)).eval().to(cuda))
+    names = ["a", "b"]
+    from mmidet_tpu_torch.tools.serve_bench import _jpeg_pair
+    svc = BatchingService(model, names, img_size=64, conf_thres=1e-3,
+                          max_batch=4, max_wait_ms=300.0)
+    single = DetectionService(model, names, img_size=64, conf_thres=1e-3)
+    imgs = [_jpeg_pair(64, shift=9 * k)[0] for k in range(4)]
+    try:
+        for n in (3, 4):
+            svc.batch_log.clear()
+            before = (cem_cuda.fused_cem.launches,
+                      nms_cuda.nms_greedy.launches)
+            out = [None] * n
+
+            def post(k):
+                out[k] = svc.predict(imgs[k], imgs[-1 - k])
+            threads = [threading.Thread(target=post, args=(k,), daemon=True)
+                       for k in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert [b for b, _ in svc.batch_log] == [n]
+            assert (cem_cuda.fused_cem.launches,
+                    nms_cuda.nms_greedy.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+            for k in range(n):
+                _records_close(out[k], single.predict(imgs[k], imgs[-1 - k]),
+                               1e-2, 1e-3)
+    finally:
+        svc.close()
+
+
+def test_quantized_tiny_model_kernel_route_matches_plain(cuda):
+    """The s8-storage deploy of a small flagship (f32, fusion depth 2)
+    through K3 and K4 on the card against the same quantized model with
+    each kernel replaced by its plain version on the card: the f32 model
+    path's gate (2e-2; the merge rounds to bf16 inside on both)."""
+    from mmidet_tpu_torch.nn.quant import QTensor, make_quant_deploy
+    model = _flagship_small(kernel_cem=True, kernel_merge=True).to(cuda)
+    gen = torch.Generator().manual_seed(1)
+    rgb, ir = (torch.rand(2, 64, 64, 3, generator=gen).to(cuda)
+               for _ in range(2))
+    q = make_quant_deploy(model, [(rgb, ir)])
+    assert isinstance(q.model[1](torch.zeros(1, 64, 16, 16, device=cuda)),
+                      QTensor)
+    with torch.no_grad():
+        before = (cem_cuda.fused_cem.launches,
+                  fusion_cuda.fused_gpt_merge.launches)
+        got = q(rgb, ir)["pred"]
+        assert (cem_cuda.fused_cem.launches,
+                fusion_cuda.fused_gpt_merge.launches) == (before[0] + 1,
+                                                          before[1] + 4)
+        with _chip_smoke().plain_versions(torch):
+            want = q(rgb, ir)["pred"]
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+def test_autoshape_through_k1_and_k2(cuda):
+    """``AutoShapeModel`` over the tiny gpt4 model (f32) on the card
+    through K1 (4 a forward) and K2 (1 a call), against the same model's
+    plain route on the CPU (K1 rounds to bf16 inside on both: boxes within
+    0.5 px, confidences 2e-2)."""
+    import copy
+
+    from mmidet_tpu_torch.hub import AutoShapeModel
+    torch.manual_seed(0)
+    model = _conditioned(fold_batchnorm(TwoStreamDetector(
+        two_stream_spec("t", "gpt4", nc=2, fusion_layers=1),
+        kernel_fusion=True)).eval())
+    rng = np.random.default_rng(2)
+    imgs = [rng.integers(0, 255, (48, 64, 3), np.uint8) for _ in range(2)]
+    ir = [255 - a for a in imgs]
+    want = AutoShapeModel(copy.deepcopy(model), ["a", "b"], img_size=64,
+                          conf=0.01, two_stream=True, device="cpu")(imgs, ir)
+    m = AutoShapeModel(model, ["a", "b"], img_size=64, conf=0.01,
+                       two_stream=True)
+    before = (tc.fused_token_transformer.launches,
+              nms_cuda.nms_greedy.launches)
+    got = m(imgs, ir)
+    assert (tc.fused_token_transformer.launches,
+            nms_cuda.nms_greedy.launches) == (before[0] + 4, before[1] + 1)
+    for g, w in zip(got.pandas(), want.pandas()):
+        _records_close(g, w, 0.5, 2e-2)

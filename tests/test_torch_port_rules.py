@@ -232,3 +232,31 @@ def test_training_modules_are_covered_and_default_to_the_card():
         cfg = trainer.TrainConfig(data="unused.yaml", mosaic_prob=0.0)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trainer.train(cfg)
+
+
+def test_serving_modules_are_covered_and_default_to_the_card():
+    """The serving front end's modules (the s8-storage deploy, bundles,
+    the hub, ensembles, the serving benchmark) are among the files the
+    import rule above reads, and their entry points run on the card
+    unless asked for the CPU."""
+    import inspect
+
+    from mmidet_tpu_torch import hub
+    from mmidet_tpu_torch.deploy import serve
+    from mmidet_tpu_torch.models import ensemble
+    from mmidet_tpu_torch.tools import serve_bench
+    port = ROOT / "mmidet_tpu_torch"
+    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
+    assert {"nn/quant.py", "deploy/serve.py", "deploy/export.py", "hub.py",
+            "models/ensemble.py", "tools/serve_bench.py"} <= files
+    for fn in (serve.BatchingService, serve.DetectionService, serve.main,
+               hub.AutoShapeModel, hub._make, hub.custom,
+               ensemble.attempt_load_ensemble):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.BatchingService(torch.nn.Identity(), ["a"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_bench.main([])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve.main([])
