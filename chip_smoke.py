@@ -110,20 +110,37 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      the records against the same model's plain versions on the card;
      ``export_deploy_bundle``, ``hub.custom`` and ``attempt_load_ensemble``
      of two bundles, each answering;
-  16. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
+  16. ``mamba_path``: the mamba family at full width, yolov5x_mamba (four
+     MambaFusion levels: pool to 8x8, forward and backward stacks of four
+     Mamba layers over the 128 tokens of both streams, the selective scan
+     in plain PyTorch), seeded, BN folded, bf16, batch 16 at 640, forward
+     + NMS through K2 alone (no K1, K3 or K4 launch), peak memory; each
+     MambaFusion level timed alone at its shapes, and the scan's share of
+     it; the f32 gate against the CPU at 320; 3 ``DetectionService``
+     requests;
+  17. ``mamba_train_gate``: ``train_f32_gate`` on yolov5s_mamba (the scan's
+     autograd on the card against the CPU's);
+  18. ``yaml_path``: three single-stream models from reference-format YAML
+     text laid out as Ultralytics YOLOv5 v5.0's ``models/hub/
+     yolov3-tiny.yaml`` (nn.MaxPool2d, nn.ZeroPad2d), ``yolov3.yaml``
+     (repeated Bottleneck rows) and ``yolov5s-transformer.yaml`` (C3TR),
+     through ``models.spec.load_yolo_yaml``: each seeded, BN folded, bf16,
+     batch 16 at 640, forward + NMS through K2 (one launch asserted), and
+     in f32 at 320 against the CPU;
+  19. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
      version, with kernel, plain, cuDNN and bound times, TFLOP/s, the
      persistent grid (blocks, tiles, shared memory a block) and ptxas's
      registers and spills;
-  17. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
+  20. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
      and ``probe_cem_fb``, each body against its plain version, timed
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  18. the ``kernels`` summary line, the card line, and the final
+  21. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-17) runs with every launch count set to 0 just before it and
+Every path (8-20) runs with every launch count set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
@@ -839,12 +856,14 @@ def png(arr) -> bytes:
 
 def phase_path(torch, dev, card: str, phase: str, vs_phase: str,
                model_name: str, flags, want_launches, alt_flags=None,
-               reps: int = 10):
+               reps: int = 10, extra=None):
     """Drive one model end to end: forward + NMS at batch 16, 640x640, bf16
     through the kernels (launches counted from 0 and asserted), the same
     path in f32 against the plain versions on the CPU, and three service
     requests.  ``alt_flags``: a second kernel route of the same model,
-    timed in turns with the first."""
+    timed in turns with the first.  ``extra(model, rgb, ir)``: more of the
+    phase's record, measured on the bf16 model and batch after the path's
+    run."""
     import copy
 
     import numpy as np
@@ -911,6 +930,8 @@ def phase_path(torch, dev, card: str, phase: str, vs_phase: str,
            "forward_nms_img_per_s": B / (fwd_ms + nms_ms) * 1e3,
            "forward_ms_per_img": fwd_ms / B, "nms_ms_per_img": nms_ms / B,
            "peak_mem_gb": peak_gb}
+    if extra is not None:
+        rec.update(extra(model, rgb, ir))
     emit(rec)
     if alt_flags is not None:
         other_ms = statistics.mean(fwd["other"])
@@ -1790,9 +1811,12 @@ def train_steps_f32(torch, model, batch, steps: int):
     return state, [{k: float(v) for k, v in m.items()} for m in metrics]
 
 
-def phase_train_f32_gate(torch, dev, card: str):
-    """Two f32 train steps of the flagship at 128 px, batch 2, on the card
-    and on the CPU from the same weights and batch."""
+def phase_train_f32_gate(torch, dev, card: str,
+                         model_name: str = "yolov5l_fuse3_fourier",
+                         phase: str = "train_f32_gate"):
+    """Two f32 train steps of ``model_name`` (the flagship) at 128 px,
+    batch 2, on the card and on the CPU from the same weights and
+    batch."""
     import copy
 
     import numpy as np
@@ -1801,7 +1825,7 @@ def phase_train_f32_gate(torch, dev, card: str):
     from mmidet_tpu_torch.models.zoo import get_model_spec
     t0 = time.perf_counter()
     torch.manual_seed(0)
-    cpu = TwoStreamDetector(get_model_spec("yolov5l_fuse3_fourier", nc=2),
+    cpu = TwoStreamDetector(get_model_spec(model_name, nc=2),
                             aux_mode="reference")
     for m in cpu.modules():
         if isinstance(m, torch.nn.Dropout):
@@ -1859,7 +1883,8 @@ def phase_train_f32_gate(torch, dev, card: str):
              for g, v in groups.items()}
     worst_key = {g: max(v, key=v.get) if v else None
                  for g, v in groups.items()}
-    rec = {"phase": "train_f32_gate", "card": card, "img": 128, "batch": 2,
+    rec = {"phase": phase, "model": model_name, "card": card, "img": 128,
+           "batch": 2,
            "steps": 2, "losses_card": m_card, "losses_cpu": m_cpu,
            "loss_max_rel_err_by_step": loss_err,
            "loss_tol": TRAIN_F32_LOSS_TOL,
@@ -1869,7 +1894,7 @@ def phase_train_f32_gate(torch, dev, card: str):
     if max(loss_err) > TRAIN_F32_LOSS_TOL or \
             any(w > TRAIN_F32_TOL for w, _ in worst.values()) or \
             not all(n for _, n in worst.values()):
-        raise AssertionError(f"train_f32_gate: the card's train steps "
+        raise AssertionError(f"{phase}: the card's train steps "
                              f"disagree with the CPU's: {rec}")
     return rec
 
@@ -2233,6 +2258,275 @@ def phase_hub_path(torch, dev, card: str):
     del m, custom, ens
     torch.cuda.empty_cache()
     return rec
+
+
+# ------------------------------------------------------------ phases 16-18
+def mamba_levels(torch, model, rgb, ir, reps: int = 10):
+    """Each MambaFusion level of ``model`` timed alone on the inputs the
+    forward gives it (CUDA events), and the selective scan's share of it:
+    ``linear_recurrence`` timed alone at that level's (B, 128, d_inner,
+    d_state) f32 shape, times the 2 x n_layers calls a level makes."""
+    from mmidet_tpu_torch.nn.mamba import MambaFusion, linear_recurrence
+    inputs = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, i=i: inputs.__setitem__(i, inp))
+        for i, m in enumerate(model.model) if isinstance(m, MambaFusion)]
+    try:
+        with torch.inference_mode():
+            model(rgb, ir)
+    finally:
+        for h in hooks:
+            h.remove()
+    levels = []
+    gen = torch.Generator(device=rgb.device).manual_seed(6)
+    for i, (r, i_) in sorted(inputs.items()):
+        mod = model.model[i]
+        cfg = mod.fwd.cfg
+        b, c, h, w = r.shape
+        n_tok = 2 * mod.grid[0] * mod.grid[1]
+        shape = (b, n_tok, cfg.d_inner, cfg.d_state)
+        a = torch.rand(shape, generator=gen, device=rgb.device)
+        x = torch.randn(shape, generator=gen, device=rgb.device)
+        with torch.inference_mode():
+            ms = time_ms(lambda: mod(r, i_), reps=reps, warmup=2)
+            scan_ms = time_ms(lambda: linear_recurrence(a, x), reps=reps,
+                              warmup=2)
+        calls = 2 * cfg.n_layers
+        levels.append({"layer": i, "d_model": c, "hw": [h, w],
+                       "tokens": n_tok, "d_inner": cfg.d_inner,
+                       "ms": ms, "scan_ms_per_call": scan_ms,
+                       "scan_calls": calls,
+                       "scan_share": calls * scan_ms / ms})
+        del a, x
+    total = sum(lv["ms"] for lv in levels)
+    return {"mamba_levels": levels, "mamba_levels_ms": total,
+            "scan_share_of_levels": sum(
+                lv["scan_calls"] * lv["scan_ms_per_call"]
+                for lv in levels) / total}
+
+
+# Reference-format YAML text, laid out as Ultralytics YOLOv5 v5.0's
+# models/hub/yolov3-tiny.yaml, yolov3.yaml and yolov5s-transformer.yaml
+# (nc 80, their anchors); ``models.spec.load_yolo_yaml`` reads the rows
+YAML_MODELS = {
+    "yolov3-tiny": """
+nc: 80
+depth_multiple: 1.0
+width_multiple: 1.0
+anchors:
+  - [10,14, 23,27, 37,58]  # P4/16
+  - [81,82, 135,169, 344,319]  # P5/32
+backbone:
+  [[-1, 1, Conv, [16, 3, 1]],  # 0
+   [-1, 1, nn.MaxPool2d, [2, 2, 0]],  # 1-P1/2
+   [-1, 1, Conv, [32, 3, 1]],
+   [-1, 1, nn.MaxPool2d, [2, 2, 0]],  # 3-P2/4
+   [-1, 1, Conv, [64, 3, 1]],
+   [-1, 1, nn.MaxPool2d, [2, 2, 0]],  # 5-P3/8
+   [-1, 1, Conv, [128, 3, 1]],
+   [-1, 1, nn.MaxPool2d, [2, 2, 0]],  # 7-P4/16
+   [-1, 1, Conv, [256, 3, 1]],
+   [-1, 1, nn.MaxPool2d, [2, 2, 0]],  # 9-P5/32
+   [-1, 1, Conv, [512, 3, 1]],
+   [-1, 1, nn.ZeroPad2d, [[0, 1, 0, 1]]],  # 11
+   [-1, 1, nn.MaxPool2d, [2, 1, 0]],  # 12
+  ]
+head:
+  [[-1, 1, Conv, [1024, 3, 1]],
+   [-1, 1, Conv, [256, 1, 1]],
+   [-1, 1, Conv, [512, 3, 1]],  # 15 (P5/32-large)
+   [-2, 1, Conv, [128, 1, 1]],
+   [-1, 1, nn.Upsample, [None, 2, 'nearest']],
+   [[-1, 8], 1, Concat, [1]],  # cat backbone P4
+   [-1, 1, Conv, [256, 3, 1]],  # 19 (P4/16-medium)
+   [[19, 15], 1, Detect, [nc, anchors]],  # Detect(P4, P5)
+  ]
+""",
+    "yolov3": """
+nc: 80
+depth_multiple: 1.0
+width_multiple: 1.0
+anchors:
+  - [10,13, 16,30, 33,23]  # P3/8
+  - [30,61, 62,45, 59,119]  # P4/16
+  - [116,90, 156,198, 373,326]  # P5/32
+backbone:
+  [[-1, 1, Conv, [32, 3, 1]],  # 0
+   [-1, 1, Conv, [64, 3, 2]],  # 1-P1/2
+   [-1, 1, Bottleneck, [64]],
+   [-1, 1, Conv, [128, 3, 2]],  # 3-P2/4
+   [-1, 2, Bottleneck, [128]],
+   [-1, 1, Conv, [256, 3, 2]],  # 5-P3/8
+   [-1, 8, Bottleneck, [256]],
+   [-1, 1, Conv, [512, 3, 2]],  # 7-P4/16
+   [-1, 8, Bottleneck, [512]],
+   [-1, 1, Conv, [1024, 3, 2]],  # 9-P5/32
+   [-1, 4, Bottleneck, [1024]],  # 10
+  ]
+head:
+  [[-1, 1, Bottleneck, [1024, False]],
+   [-1, 1, Conv, [512, [1, 1]]],
+   [-1, 1, Conv, [1024, 3, 1]],
+   [-1, 1, Conv, [512, 1, 1]],
+   [-1, 1, Conv, [1024, 3, 1]],  # 15 (P5/32-large)
+   [-2, 1, Conv, [256, 1, 1]],
+   [-1, 1, nn.Upsample, [None, 2, 'nearest']],
+   [[-1, 8], 1, Concat, [1]],  # cat backbone P4
+   [-1, 1, Bottleneck, [512, False]],
+   [-1, 1, Bottleneck, [512, False]],
+   [-1, 1, Conv, [256, 1, 1]],
+   [-1, 1, Conv, [512, 3, 1]],  # 22 (P4/16-medium)
+   [-2, 1, Conv, [128, 1, 1]],
+   [-1, 1, nn.Upsample, [None, 2, 'nearest']],
+   [[-1, 6], 1, Concat, [1]],  # cat backbone P3
+   [-1, 1, Bottleneck, [256, False]],
+   [-1, 2, Bottleneck, [256, False]],
+   [[27, 22, 15], 1, Detect, [nc, anchors]],  # Detect(P3, P4, P5)
+  ]
+""",
+    "yolov5s-transformer": """
+nc: 80
+depth_multiple: 0.33
+width_multiple: 0.50
+anchors:
+  - [10,13, 16,30, 33,23]  # P3/8
+  - [30,61, 62,45, 59,119]  # P4/16
+  - [116,90, 156,198, 373,326]  # P5/32
+backbone:
+  [[-1, 1, Focus, [64, 3]],  # 0-P1/2
+   [-1, 1, Conv, [128, 3, 2]],  # 1-P2/4
+   [-1, 3, C3, [128]],
+   [-1, 1, Conv, [256, 3, 2]],  # 3-P3/8
+   [-1, 9, C3, [256]],
+   [-1, 1, Conv, [512, 3, 2]],  # 5-P4/16
+   [-1, 9, C3, [512]],
+   [-1, 1, Conv, [1024, 3, 2]],  # 7-P5/32
+   [-1, 1, SPP, [1024, [5, 9, 13]]],
+   [-1, 3, C3TR, [1024, False]],  # 9 <-- C3TR() transformer module
+  ]
+head:
+  [[-1, 1, Conv, [512, 1, 1]],
+   [-1, 1, nn.Upsample, [None, 2, 'nearest']],
+   [[-1, 6], 1, Concat, [1]],  # cat backbone P4
+   [-1, 3, C3, [512, False]],  # 13
+   [-1, 1, Conv, [256, 1, 1]],
+   [-1, 1, nn.Upsample, [None, 2, 'nearest']],
+   [[-1, 4], 1, Concat, [1]],  # cat backbone P3
+   [-1, 3, C3, [256, False]],  # 17 (P3/8-small)
+   [-1, 1, Conv, [256, 3, 2]],
+   [[-1, 14], 1, Concat, [1]],  # cat head P4
+   [-1, 3, C3, [512, False]],  # 20 (P4/16-medium)
+   [-1, 1, Conv, [512, 3, 2]],
+   [[-1, 10], 1, Concat, [1]],  # cat head P5
+   [-1, 3, C3, [1024, False]],  # 23 (P5/32-large)
+   [[17, 20, 23], 1, Detect, [nc, anchors]],  # Detect(P3, P4, P5)
+  ]
+""",
+}
+
+
+def yaml_spec(name: str):
+    import yaml
+
+    from mmidet_tpu_torch.models.spec import load_yolo_yaml
+    return load_yolo_yaml(yaml.safe_load(YAML_MODELS[name]))
+
+
+# the YAML models' 80 classes put a seeded model's scores near the Detect
+# prior (obj 0.02 x cls 0.0076, about 1.5e-4), below the path's 0.001: NMS
+# there runs at 1e-5, so that K2's pools hold boxes
+YAML_CONF = 1e-5
+
+
+def phase_yaml_path(torch, dev, card: str, reps: int = 5):
+    """The three YAML models (``YAML_MODELS``), single-stream: each seeded,
+    BN folded and conditioned (``condition``, on the CPU at 320), bf16 on
+    the card, batch 16 at 640, forward + NMS (``YAML_CONF``) with K2's one
+    launch asserted (launches counted from 0), timed; then in f32 at 320,
+    batch 2, card against CPU (TF32 off) within PATH_TOL, and NMS on the
+    card's predictions through K2 against greedy's plain version."""
+    import copy
+
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+
+    B, S, small_img = 16, 640, 320
+    recs = []
+    for name in YAML_MODELS:
+        t0 = time.perf_counter()
+        spec = yaml_spec(name)
+        model = build_model(torch, spec, use_cem=False)
+        small = torch.rand(2, small_img, small_img, 3,
+                           generator=torch.Generator().manual_seed(8))
+        condition(torch, model, small, None)
+        n_params = sum(p.numel() for p in model.parameters())
+        f32_model = copy.deepcopy(model)
+        model = model.to(dev, torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        rgb = torch.rand(B, S, S, 3, generator=gen, device=dev)
+
+        def nms(pred, conf=YAML_CONF):
+            return non_max_suppression(pred.float(), conf_thres=conf,
+                                       iou_thres=0.45)
+
+        with torch.inference_mode():
+            nms(model(rgb)["pred"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            pred = model(rgb)["pred"]
+            dets, valid = nms(pred)
+            torch.cuda.synchronize()
+            launches = read_counts(nms_greedy=1)
+            n_box = sum(3 * (S // st) ** 2 for st in spec.strides)
+            if tuple(pred.shape) != (B, n_box, 5 + spec.nc) or \
+                    not bool(torch.isfinite(pred).all()) or \
+                    not bool(torch.isfinite(dets).all()):
+                raise AssertionError(f"yaml_path: bad output of {name}: "
+                                     f"{tuple(pred.shape)}")
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            fwd_ms = time_ms(lambda: model(rgb)["pred"], reps=reps, warmup=1)
+            nms_ms = time_ms(lambda: nms(pred), reps=reps, warmup=1)
+        del model, pred, dets
+        # f32 at 320: card against CPU
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            cpu_pred = f32_model(small)["pred"]
+            gpu_pred = f32_model.to(dev)(small.to(dev))["pred"]
+            d_cpu, v_cpu = nms(gpu_pred.cpu())
+            d_gpu, v_gpu = nms(gpu_pred)
+        err = float((gpu_pred.cpu() - cpu_pred).abs().max())
+        close = bool(torch.allclose(gpu_pred.cpu(), cpu_pred, rtol=PATH_TOL,
+                                    atol=PATH_TOL))
+        nms_same = bool(torch.equal(v_cpu, v_gpu.cpu())
+                        and torch.allclose(d_cpu, d_gpu.cpu(), atol=1e-5,
+                                           rtol=0))
+        rec = {"phase": "yaml_path", "model": name, "card": card,
+               "batch": B, "img": S, "dtype": "bfloat16", "conf": YAML_CONF,
+               "params_m": n_params / 1e6, "strides": list(spec.strides),
+               "rows": sorted({ld.name for ld in spec.layers}),
+               "launches_per_forward": launches,
+               "kept_per_image": float(valid.sum(1).float().mean()),
+               "forward_ms_per_batch": fwd_ms, "nms_ms_per_batch": nms_ms,
+               "forward_img_per_s": B / fwd_ms * 1e3,
+               "forward_nms_img_per_s": B / (fwd_ms + nms_ms) * 1e3,
+               "peak_mem_gb": peak_gb,
+               "f32_vs_cpu": {"img": small_img, "batch": 2,
+                              "pred_max_abs_err": err,
+                              "pred_max_abs": float(cpu_pred.abs().max()),
+                              "tol": PATH_TOL, "pred_close": close,
+                              "nms_identical": nms_same,
+                              "kept": int(v_gpu.sum())},
+               "seconds": time.perf_counter() - t0}
+        emit(rec)
+        if not (close and nms_same and rec["kept_per_image"] > 0
+                and int(v_gpu.sum()) > 0):
+            raise AssertionError(f"yaml_path: {name} on the card disagrees "
+                                 f"with the CPU or kept nothing")
+        recs.append(rec)
+        del f32_model, gpu_pred
+        torch.cuda.empty_cache()
+    return recs
 
 
 def phase_p1(torch, dev):
@@ -2700,6 +2994,13 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     hub_rec = phase_hub_path(torch, dev, name)
+    mamba, _ = phase_path(
+        torch, dev, name, "mamba_path", "mamba_vs_plain", "yolov5x_mamba",
+        {"kernel_fusion": False}, {"nms_greedy": 1}, reps=5,
+        extra=lambda m, rgb, ir: mamba_levels(torch, m, rgb, ir))
+    phase_train_f32_gate(torch, dev, name, "yolov5s_mamba",
+                         "mamba_train_gate")
+    yaml_recs = phase_yaml_path(torch, dev, name)
     p1, p1_launches = phase_p1(torch, dev)
     p2, p3, probe_launches = phase_p2_p3(torch, dev)
 
@@ -2740,6 +3041,10 @@ def main() -> int:
          "int8_launches": int8["launches"]["nms_greedy"],
          "hub_launches": {k: r["launches"]["nms_greedy"]
                           for k, r in hub_rec["runs"].items()},
+         # one a batch of yolov5x_mamba and of each YAML model
+         "mamba_launches": mamba["nms_greedy"],
+         "yaml_launches": {r["model"]: r["launches_per_forward"]["nms_greedy"]
+                           for r in yaml_recs},
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},

@@ -7,7 +7,20 @@ reference torch names, so the key of each leaf is what the JAX package's
 checkpoint converter computes (``mmidet_tpu/train/checkpoint.py:84-169``,
 ``_torch_key``/``_transform``; copied here, reversed):
 
-  * conv kernels HWIO -> OIHW; Dense kernels (in, out) -> (out, in);
+  * conv kernels HWIO -> OIHW; Dense kernels (in, out) -> (out, in) (the
+    kernels under ``_LINEAR_SCOPES``, as the JAX package's converter reads
+    them);
+  * flax ``MultiHeadDotProductAttention`` (C3TR's ``ma``): the
+    ``query``/``key``/``value`` kernels (c, heads, head_dim) and the
+    ``out`` kernel (heads, head_dim, c) -> ``nn.Linear`` weights
+    (c, heads * head_dim); their biases flattened;
+  * repeated rows: ``l{i}_{name}`` and ``l{i}_{name}_r{r}`` ->
+    ``model.{i}.0`` and ``model.{i}.{r}`` (the reference's
+    ``nn.Sequential``); the C3TR block's ``tr{j}`` -> ``tr.{j}`` and a
+    Mamba stack's ``layer{j}`` -> ``layers.{j}``; CrossConv's
+    ``cv1_conv``/``cv1_bn`` -> ``cv1.conv``/``cv1.bn``;
+  * Mamba's ``conv1d_kernel``, ``conv1d_bias``, ``A_log``, ``D`` and
+    RMSNorm ``weight`` leaves are copied as stored;
   * ``sobel_factor`` (out,) -> (out, 1, 1, 1);
   * the ``trans`` and ``pattern`` scopes of the fusion blocks are flat in
     the reference (``pattern/conv1/kernel`` -> ``conv1.weight``);
@@ -32,7 +45,9 @@ import numpy as np
 import torch
 
 _LINEAR_SCOPES = ("que_proj", "key_proj", "val_proj", "out_proj", "mlp_fc1",
-                  "mlp_fc2")
+                  "mlp_fc2", "linear", "q", "k", "v", "fc1", "fc2",
+                  "in_proj", "x_proj", "dt_proj")
+_MHA = ("query", "key", "value", "out")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -45,25 +60,45 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
-def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
-    """flax variable path -> (port state-dict key, transform kind)."""
+def repeated_rows(variables: dict) -> frozenset:
+    """The layer indices whose JAX scopes repeat (``l{i}_{name}_r{r}``)."""
+    return frozenset(
+        int(m.group(1)) for col in variables.values() for head in col
+        if (m := re.fullmatch(r"l(\d+)_.+_r\d+", head)))
+
+
+def torch_key(path: tuple[str, ...],
+              repeated: frozenset = frozenset()) -> tuple[str, str]:
+    """flax variable path -> (port state-dict key, transform kind).
+    ``repeated``: the rows of ``repeated_rows``, whose first copy sits at
+    ``model.{i}.0``."""
     segs = list(path)
     head = segs.pop(0)
     m = re.match(r"l(\d+)_(.+)", head)
     if m:
         prefix = f"model.{m.group(1)}"
+        r = re.search(r"_r(\d+)$", head)
+        if r or int(m.group(1)) in repeated:
+            prefix += "." + (r.group(1) if r else "0")
     elif head == "enhance":
         prefix = "Enhance"
     else:
         raise KeyError(f"unmapped top-level {head}")
     out: list[str] = []
     kind = "raw"
+    mha = len(segs) >= 3 and segs[-3] == "ma" and segs[-2] in _MHA
     for i, s in enumerate(segs):
         if i == len(segs) - 1:
             if s == "kernel":
-                kind = "linear" if any(p in _LINEAR_SCOPES
-                                       for p in segs[:i]) else "conv"
+                if mha:
+                    kind = "mha_out" if segs[-2] == "out" else "mha_in"
+                else:
+                    kind = "linear" if any(p in _LINEAR_SCOPES
+                                           for p in segs[:i]) else "conv"
                 out.append("weight")
+            elif s == "bias" and mha:
+                kind = "flat"
+                out.append("bias")
             elif s == "scale":
                 out.append("weight")
             elif s == "mean":
@@ -86,6 +121,12 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
             out.append("m." + s[1:])
         elif re.fullmatch(r"block\d+", s):    # token transformer blocks
             out.append("trans_blocks." + s[len("block"):])
+        elif re.fullmatch(r"tr\d+", s):       # C3TR's transformer layers
+            out.append("tr." + s[2:])
+        elif re.fullmatch(r"layer\d+", s):    # Mamba stacks
+            out.append("layers." + s[len("layer"):])
+        elif re.fullmatch(r"cv\d+_(conv|bn)", s):  # CrossConv
+            out.append(s.replace("_", "."))
         elif s in ("trans", "pattern"):       # flat in the reference
             pass
         elif s == "mlp_fc1":
@@ -100,10 +141,17 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
 
 
 def to_torch_layout(arr: np.ndarray, kind: str) -> np.ndarray:
-    if kind == "conv":
-        return np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-    if kind == "linear":
+    if kind in ("conv", "linear"):
+        # by rank: MetaAconC's fc1/fc2 are convs under a Dense's scope name
+        if arr.ndim == 4:
+            return np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
         return np.transpose(arr, (1, 0))
+    if kind == "mha_in":    # (c, heads, head_dim) -> (heads * head_dim, c)
+        return arr.reshape(arr.shape[0], -1).T
+    if kind == "mha_out":   # (heads, head_dim, c) -> (c, heads * head_dim)
+        return arr.reshape(-1, arr.shape[-1]).T
+    if kind == "flat":
+        return arr.reshape(-1)
     if kind == "factor":
         return arr.reshape(-1, 1, 1, 1)
     return arr
@@ -115,9 +163,10 @@ def from_jax_variables(model: torch.nn.Module, variables: dict) -> dict:
     {port key: flax path} it used."""
     sd = model.state_dict()
     used: dict[str, tuple] = {}
+    repeated = repeated_rows(variables)
     for collection in ("params", "batch_stats", "quant"):
         for path, arr in _flatten(variables.get(collection, {})).items():
-            key, kind = torch_key(path)
+            key, kind = torch_key(path, repeated)
             if key not in sd:
                 raise KeyError(f"{collection}/{'/'.join(path)} -> {key}: "
                                "no such key in the port module")

@@ -21,7 +21,18 @@ a1..a4 weighted sum the code intended, ``"off"`` none (inference):
 
 Modules sit at ``model.{i}`` (parameter-free layers hold an
 ``nn.Identity``) and the CEM at ``Enhance``, the reference's state-dict
-names.
+names.  A row repeated ``n > 1`` times outside the C3 family (hub
+``yolov3.yaml``'s Bottleneck rows) chains ``n`` copies of its module, the
+reference's ``nn.Sequential`` at ``model.{i}.{r}``; the JAX package names
+the copies ``l{i}_{name}``, ``l{i}_{name}_r1``, ...
+
+Every row the JAX package's detector takes is built: the conv-stack rows
+of ``nn.layers`` (``_ROWS``), the fusion blocks (GPT, GPT1, GPT1_fourier
+and ``MambaFusion``, whose two outputs go through the ``Add2`` rows
+unmerged), ``Detect``, and the parameter-free ``Concat``, ``Add``,
+``Add2``, ``Upsample`` (nearest or bilinear), ``nn.MaxPool2d`` (padded
+with -inf, as the JAX package's ``reduce_window``), ``nn.ZeroPad2d``
+(``(left, right, top, bottom)``), ``Contract`` and ``Expand``.
 
 Single-stream models (reference ``models/yolo.py``) run through the same
 executor: a spec without ``-4`` refs, ``use_cem=False`` and ``ir=None``.
@@ -39,7 +50,10 @@ Inside, tensors are NCHW.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mmidet_tpu_torch.losses import fusion as fusion_losses
@@ -49,15 +63,43 @@ from mmidet_tpu_torch.nn import layers as L
 from mmidet_tpu_torch.nn.cem import ContourEnhance
 from mmidet_tpu_torch.nn.fusion import (CrossModalTransformer,
                                         FourierPatternFusion, PatternFusion)
+from mmidet_tpu_torch.nn.mamba import MambaFusion
 from mmidet_tpu_torch.nn.quant import deq_tree
-from mmidet_tpu_torch.nn.resize import nearest_upsample
+from mmidet_tpu_torch.nn.resize import bilinear_resize, nearest_upsample
 
 AUX_WEIGHTS = (0.1, 1.0, 0.06, 0.03)  # a1..a4, yolo_test.py:170-178
-_PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample", "nn.Upsample"}
+_PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample", "nn.Upsample",
+                   "nn.MaxPool2d", "nn.ZeroPad2d", "Contract", "Expand"}
 _FUSION = {"GPT": CrossModalTransformer, "GPT1": PatternFusion,
            "GPT1_fourier": FourierPatternFusion}
+# rows built as ``cls(c1, *args)``, the JAX package's ``_SIMPLE`` table
+_ROWS = {"Conv": L.ConvBnAct, "Focus": L.Focus, "Bottleneck": L.Bottleneck,
+         "BottleneckCSP": L.BottleneckCSP, "C3": L.C3, "C3TR": L.C3TR,
+         "SPP": L.SPP, "SPPF": L.SPPF, "DWConv": L.DWConv,
+         "GhostConv": L.GhostConv, "GhostBottleneck": L.GhostBottleneck,
+         "MixConv2d": L.MixConv2d, "CrossConv": L.CrossConv}
+_UNFUSABLE = {"MixConv2d", "CrossConv"}  # take no ``fused`` (keep their BN)
 # rows that take and give int8 QTensors in the s8-storage deploy form
-_QUANT_CAPABLE = {"Conv", "Focus", "Bottleneck", "C3", "SPP"}
+_QUANT_CAPABLE = {"Conv", "Focus", "Bottleneck", "C3", "SPP", "SPPF",
+                  "DWConv"}
+
+
+def _row(m: str, c1: int, args: tuple, fused: bool, quant: bool):
+    kw = {} if m in _UNFUSABLE else {"fused": fused}
+    if m in _QUANT_CAPABLE:
+        kw["quant"] = quant
+    return _ROWS[m](c1, args[0], *args[1:], **kw)
+
+
+def _upsample(x, args):
+    """torch nn.Upsample(size, scale_factor, mode) args, the JAX package's
+    reading: scale 2 and nearest unless given."""
+    scale = int(args[1]) if len(args) >= 2 and args[1] else 2
+    mode = args[2] if len(args) >= 3 and isinstance(args[2], str) \
+        else "nearest"
+    if mode == "nearest":
+        return nearest_upsample(x, scale)
+    return bilinear_resize(x, (x.shape[2] * scale, x.shape[3] * scale))
 
 
 def _nhwc(t):
@@ -113,14 +155,14 @@ class TwoStreamDetector(nn.Module):
         for rl in self.resolved:
             m, a, i = rl.name, rl.args, rl.index
             c1 = ch_of(rl.f if isinstance(rl.f, int) else rl.f[0], i)
-            if m == "Conv":
-                mod = L.ConvBnAct(c1, a[0], *a[1:], fused=fused, quant=quant)
-            elif m == "Focus":
-                mod = L.Focus(c1, a[0], *a[1:], fused=fused, quant=quant)
-            elif m == "C3":
-                mod = L.C3(c1, a[0], *a[1:], fused=fused, quant=quant)
-            elif m == "SPP":
-                mod = L.SPP(c1, a[0], *a[1:], fused=fused, quant=quant)
+            if m in _ROWS:
+                # n > 1 chains copies (reference nn.Sequential); the C3
+                # family folds its repeats into ``n`` instead
+                mod = _row(m, c1, a, fused, quant)
+                if rl.n > 1:
+                    mod = nn.Sequential(mod, *[
+                        _row(m, a[0], a, fused, quant)
+                        for _ in range(rl.n - 1)])
             elif m in _FUSION:
                 # GPT1*'s pattern loss is computed only for the aux losses,
                 # which also need the unmerged outputs
@@ -131,14 +173,14 @@ class TwoStreamDetector(nn.Module):
                                  merge_kernel=kernel_merge and (
                                      m == "GPT" or aux_mode == "off"),
                                  **extra)
+            elif m == "MambaFusion":
+                mod = MambaFusion(a[0])
             elif m == "Detect":
                 mod = Detect(a[0], a[1], a[2], spec.strides)
             elif m in _PARAMETER_FREE:
                 mod = nn.Identity()
             else:
-                raise NotImplementedError(f"module {m!r} is not ported yet")
-            if rl.n != 1:
-                raise NotImplementedError(f"repeated {m!r} rows")
+                raise ValueError(f"unhandled module {m}")
             mods.append(mod)
         self.model = nn.ModuleList(mods)
 
@@ -180,10 +222,22 @@ class TwoStreamDetector(nn.Module):
                 else:
                     x = inp[0] + inp[1][rl.args[0]]
             elif m in ("Upsample", "nn.Upsample"):
-                # args follow torch nn.Upsample(size, scale_factor, mode)
-                if rl.args[2] != "nearest":
-                    raise NotImplementedError(f"Upsample mode {rl.args[2]!r}")
-                x = nearest_upsample(inp, int(rl.args[1]))
+                x = _upsample(inp, rl.args)
+            elif m == "nn.MaxPool2d":
+                # torch nn.MaxPool2d(kernel_size, stride, padding)
+                a = rl.args
+                k = a[0]
+                pd = a[2] if len(a) > 2 else 0
+                x = F.max_pool2d(F.pad(inp, (pd,) * 4, value=-math.inf), k,
+                                 a[1] if len(a) > 1 and a[1] else k)
+            elif m == "nn.ZeroPad2d":
+                x = F.pad(inp, tuple(rl.args[0]))  # left, right, top, bottom
+            elif m == "Contract":
+                x = L.contract(inp, rl.args[0])
+            elif m == "Expand":
+                x = L.expand(inp, rl.args[0])
+            elif m == "MambaFusion":
+                x = list(mod(inp[0], inp[1]))
             elif m in _FUSION:
                 fourier = m == "GPT1_fourier"
                 if self.aux_mode != "off" and fourier:

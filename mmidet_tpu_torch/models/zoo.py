@@ -10,9 +10,10 @@ JAX package).  Families (reference ``models/transformer/*.yaml`` +
   * ``fusion='gpt4'``    -- GPT at P2+P3+P4+P5 (``*_fusion_transformer_*``)
   * ``fusion='gpt3'``    -- GPT at P3/P4/P5 only (``*_transformerx3_*``)
   * ``fusion='add'``     -- late elementwise Add fusion (``*_fusion_add_*``)
+  * ``fusion='mamba'``   -- the gpt4 grammar with ``MambaFusion`` at every
+    level (the JAX package's state-space fusion, ``yolov5{s,m,l,x}_mamba``)
   * ``single_stream_spec`` / ``single_stream_p6_spec`` -- vanilla YOLOv5
     and YOLOv5-P6 (``models/yolov5{s,m,l,x}.yaml``, ``models/hub/*6.yaml``)
-``fusion='mamba'`` raises: its fusion module is not ported yet.
 
 Scales use YOLOv5's (depth, width) multiples; anchor defaults are the COCO
 anchors every reference config ships.
@@ -177,10 +178,12 @@ def two_stream_spec(scale: str = "l", fusion: str = "fourier", nc: int = 6,
         ]
         layers += _head(p3=20, p4=21, p5=22, base=23)
     elif fusion == "mamba":
-        # the gpt4 grammar with MambaFusion at every level (the JAX
-        # package's state-space fusion): that module is not ported yet
-        raise NotImplementedError(
-            "fusion 'mamba': MambaFusion is not ported to PyTorch yet")
+        # gpt4 grammar with Mamba SSM fusion in place of attention (the
+        # reference ships Mamba unwired; BASELINE names a yolov5x+mamba
+        # variant) — cross-modal state-space fusion at all four levels
+        base = two_stream_spec(scale, "gpt4", nc, anchors)
+        layers = [LayerDef(l.f, l.n, "MambaFusion" if l.name == "GPT"
+                           else l.name, l.args) for l in base.layers]
     else:
         raise ValueError(f"unknown fusion {fusion!r}")
 

@@ -97,6 +97,69 @@ class EnhanceConv(nn.Module):
                 + self.bias.view(1, c, 1, 1).to(x.dtype))
 
 
+def _tail_reference(y, factor, bias_s, w3, b3):
+    """The CEM tail as the unfused module computes it: edge bank -> add ->
+    conv3 (+ bias), before the leaky ReLU and the residual.  NCHW; ``w3``
+    OIHW.  It recomputes the border ring of ``tail_composed``."""
+    bank8 = torch.from_numpy(np.ascontiguousarray(
+        edge_filter_bank(8, 1, 3)[:, :, 0, :].transpose(2, 0, 1)))[:, None]
+    g = F.conv2d(y.sum(1, keepdim=True), bank8.to(y), padding=1)
+    c2 = y.shape[1]
+    e = g.repeat(1, c2 // 8, 1, 1) * factor.view(1, c2, 1, 1) \
+        + bias_s.view(1, c2, 1, 1)
+    return F.conv2d(y + e, w3, b3, padding=1)
+
+
+def compose_tail_kernel(factor, bias_s, w3, b3):
+    """Collapse the linear CEM tail into ONE 5x5 conv kernel and a bias.
+
+    Between the two leaky ReLUs the tail is linear in ``y``; with outer
+    offset a (``w3``) and inner offset q (the bank), the bank leg
+    contributes ``K5[a+q, j, o] = sum_m wf[a, m, o] * bank[q, m]`` for
+    every input channel j (the bank acts on the channel sum), where
+    ``wf[a, m, o] = sum_{j % 8 == m} w3[a, j, o] * factor[j]``; the direct
+    leg puts ``w3`` at the 5x5 centre, and the constant ``bias_s`` leg
+    folds into the bias (its interior value).  ``w3`` OIHW; returns
+    (kernel (co, C2, 5, 5) OIHW, bias (co,)) in f32.  JAX
+    ``compose_tail_kernel``."""
+    co, c2 = w3.shape[0], w3.shape[1]
+    bank8 = torch.from_numpy(
+        np.asarray(edge_filter_bank(8, 1, 3))[:, :, 0, :]).to(w3.device)
+    w3 = w3.float().permute(2, 3, 1, 0)                      # HWIO
+    factor = factor.float()
+    wf = (w3 * factor[None, None, :, None]).reshape(
+        3, 3, c2 // 8, 8, co).sum(2)                         # (3, 3, 8, co)
+    k5 = torch.zeros(5, 5, co, device=w3.device)
+    for ai in range(3):
+        for aj in range(3):
+            k5[ai:ai + 3, aj:aj + 3] += torch.einsum(
+                "qrm,mo->qro", bank8, wf[ai, aj])
+    k = k5[:, :, None, :].expand(5, 5, c2, co).clone()
+    k[1:4, 1:4] += w3
+    b = b3.float() + torch.einsum("hwjo,j->o", w3, bias_s.float())
+    return k.permute(3, 2, 0, 1), b
+
+
+def tail_composed(y, factor, bias_s, w3, b3):
+    """The CEM tail as ONE 5x5 conv, with its 1-px border ring recomputed
+    exactly.  The composed kernel assumes the bank's products extend past
+    the image border and ``bias_s`` at its interior value, both wrong on
+    the outermost ring only; each border row and column is recomputed with
+    the plain tail on a 3-wide strip, whose cut-edge padding error reaches
+    only strip outputs that are dropped.  NCHW; ``w3`` OIHW.  JAX
+    ``tail_composed``, opt-in there too (it measured slower on its
+    accelerator at the CEM's 3 output channels)."""
+    k, b = compose_tail_kernel(factor, bias_s, w3, b3)
+    z = F.conv2d(y, k.to(y.dtype), b.to(y.dtype), padding=2)
+    args = (factor.to(y.dtype), bias_s.to(y.dtype), w3.to(y.dtype),
+            b3.to(y.dtype))
+    z[:, :, :1] = _tail_reference(y[:, :, :3], *args)[:, :, :1]
+    z[:, :, -1:] = _tail_reference(y[:, :, -3:], *args)[:, :, -1:]
+    z[:, :, :, :1] = _tail_reference(y[:, :, :, :3], *args)[:, :, :, :1]
+    z[:, :, :, -1:] = _tail_reference(y[:, :, :, -3:], *args)[:, :, :, -1:]
+    return z
+
+
 class ContourEnhance(nn.Module):
     """CEM: expand x8 -> edge bank -> add -> reduce -> residual.
     Ref: AdaptiveModule3, common.py:751-803 (conv/bn/leaky-relu 0.1).
@@ -104,12 +167,16 @@ class ContourEnhance(nn.Module):
     ``use_kernel=True`` (deploy, eval mode, needs ``fused``): the whole
     module runs as the fused CEM kernel (``nn.cem_cuda``), as ``use_pallas``
     does in the JAX package; a bf16 module takes the kernel's bf16 form, an
-    f32 module its f32 form.  Same parameters either way."""
+    f32 module its f32 form.  Same parameters either way.
+    ``compose_tail=True`` (opt-in, off by default as in the JAX package;
+    BN-folded, eval mode, without the kernel): the linear bank -> add ->
+    conv3 tail runs as one composed 5x5 conv (``tail_composed``)."""
 
     def __init__(self, c: int = 3, fused: bool = False,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, compose_tail: bool = False):
         super().__init__()
         self.use_kernel = use_kernel
+        self.compose_tail = compose_tail
         self._pack, self._pack_key = None, None
         self.conv2 = nn.Conv2d(c, c * 8, 3, 1, 1, bias=fused)
         self.bn2 = None if fused else batchnorm(c * 8)
@@ -144,6 +211,11 @@ class ContourEnhance(nn.Module):
         if self.bn2 is not None:
             y = self.bn2(y)
         y = F.leaky_relu(y, 0.1)
+        if self.compose_tail and self.bn3 is None and not self.training:
+            z = tail_composed(y, self.sobel.sobel_factor.flatten(),
+                              self.sobel.bias, self.conv3.weight,
+                              self.conv3.bias)
+            return F.leaky_relu(z, 0.1) + x
         y = self.conv3(y + self.sobel(y))
         if self.bn3 is not None:
             y = self.bn3(y)

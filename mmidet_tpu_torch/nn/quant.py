@@ -60,10 +60,23 @@ def deq_tree(x, dtype: torch.dtype = torch.bfloat16):
 
 
 def _fused_convs(model: nn.Module):
-    """Every fused ``ConvBnAct`` (BN folded) of ``model``, by name."""
-    from mmidet_tpu_torch.nn.layers import ConvBnAct
-    return [(name, mod) for name, mod in model.named_modules()
-            if isinstance(mod, ConvBnAct) and mod.bn is None]
+    """Every fused ``ConvBnAct`` (BN folded) of ``model`` that the JAX
+    package quantizes, by name: those inside quantizable modules only
+    (``ConvBnAct``, ``Focus``, ``Bottleneck``, ``C3``, ``SPP``, ``SPPF``,
+    ``DWConv`` and the containers that chain them), not the ones of, say,
+    ``GhostConv`` or ``C3TR``, which take no ``quant`` there."""
+    from mmidet_tpu_torch.nn import layers as L
+    quantizable = (L.ConvBnAct, L.Focus, L.Bottleneck, L.C3, L.SPP, L.SPPF,
+                   L.DWConv, nn.Sequential, nn.ModuleList)
+    out = []
+    for name, mod in model.named_modules():
+        if not (isinstance(mod, L.ConvBnAct) and mod.bn is None):
+            continue
+        parts = name.split(".")
+        if all(isinstance(model.get_submodule(".".join(parts[:i])),
+                          quantizable) for i in range(1, len(parts))):
+            out.append((name, mod))
+    return out
 
 
 @torch.no_grad()

@@ -14,6 +14,8 @@ import torch
 from mmidet_tpu.data import augment as ja
 from mmidet_tpu_torch.data import augment as pa
 
+from test_torch_port_train import _threads  # noqa: F401
+
 # f32 on both sides; the colour maps have branch points (hue wrap, max
 # channel ties) that random inputs do not hit, so the same operations agree
 # to f32 rounding

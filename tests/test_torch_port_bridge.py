@@ -20,6 +20,8 @@ from mmidet_tpu_torch.bridge import (from_jax_variables, to_torch_layout,
 from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.zoo import two_stream_spec
 
+from test_torch_port_train import _threads  # noqa: F401
+
 
 def _flat(tree, prefix=()):
     for k, v in tree.items():

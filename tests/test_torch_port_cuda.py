@@ -1310,3 +1310,50 @@ def test_autoshape_through_k1_and_k2(cuda):
             nms_cuda.nms_greedy.launches) == (before[0] + 4, before[1] + 1)
     for g, w in zip(got.pandas(), want.pandas()):
         _records_close(g, w, 0.5, 2e-2)
+
+
+def _card_against_cpu(cuda, model, *images, conf=0.001):
+    """``model`` (f32) on the card against itself on the CPU (TF32 off:
+    sums in another order only, 1e-3), then NMS at ``conf`` on the card's
+    predictions through K2 (one launch) against greedy's plain version on
+    the CPU."""
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+    with torch.no_grad():
+        want = model(*images)["pred"]
+        got = model.to(cuda)(*(t.to(cuda) for t in images))["pred"]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    before = nms_cuda.nms_greedy.launches
+    d_gpu, v_gpu = non_max_suppression(got, conf_thres=conf)
+    torch.cuda.synchronize()
+    assert nms_cuda.nms_greedy.launches == before + 1
+    d_cpu, v_cpu = non_max_suppression(got.cpu(), conf_thres=conf)
+    assert torch.equal(v_gpu.cpu(), v_cpu) and int(v_cpu.sum()) > 0
+    torch.testing.assert_close(d_gpu.cpu(), d_cpu, rtol=0, atol=1e-5)
+
+
+def test_mamba_model_on_the_card_matches_cpu(cuda):
+    """yolov5s_mamba (four MambaFusion levels; the selective scan in plain
+    PyTorch), BN folded, at 128 px."""
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    torch.manual_seed(0)
+    model = fold_batchnorm(TwoStreamDetector(
+        get_model_spec("yolov5s_mamba", nc=2))).eval()
+    gen = torch.Generator().manual_seed(1)
+    _card_against_cpu(cuda, model, torch.rand(2, 128, 128, 3, generator=gen),
+                      torch.rand(2, 128, 128, 3, generator=gen))
+
+
+@pytest.mark.parametrize("name", ["yolov3-tiny", "yolov3",
+                                  "yolov5s-transformer"])
+def test_yaml_model_on_the_card_matches_cpu(cuda, name):
+    """``chip_smoke.py``'s reference-format YAML models (MaxPool2d and
+    ZeroPad2d rows, repeated Bottleneck rows, C3TR), single-stream, BN
+    folded and conditioned, at 128 px, NMS at ``chip_smoke.YAML_CONF`` (80
+    classes: a seeded model's scores sit below 0.001)."""
+    cs = _chip_smoke()
+    torch.manual_seed(0)
+    model = fold_batchnorm(TwoStreamDetector(cs.yaml_spec(name),
+                                             use_cem=False)).eval()
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+    cs.condition(torch, model, x, None)
+    _card_against_cpu(cuda, model, x, conf=cs.YAML_CONF)

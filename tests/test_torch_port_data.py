@@ -23,11 +23,11 @@ from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
 from mmidet_tpu_torch.models import spec as pspec
 from mmidet_tpu_torch.models import zoo as pzoo
 
-# every name the JAX package's _named accepts but the mamba family
+# every name the JAX package's _named accepts
 NAMES = ["yolov5s", "yolov5m6", "yolov5s_fuse3", "yolov5l_fuse3_fourier",
          "yolov5m_fourier", "yolov5s_gpt4", "yolov5s_transformer",
          "yolov5x_gpt3", "yolov5s_transformerx3", "yolov5m_add",
-         "yolov5s_gpt1", "yolov5t_add"]
+         "yolov5s_gpt1", "yolov5t_add", "yolov5s_mamba", "yolov5x_mamba"]
 
 
 @pytest.fixture(scope="module")
@@ -226,8 +226,13 @@ def test_named_specs_match(name):
 
 
 def test_mamba_is_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pzoo.get_model_spec("yolov5s_mamba")
+    """No longer refused: the mamba family builds, the JAX package's spec
+    (the gpt4 grammar with MambaFusion at its four fusion rows)."""
+    spec = pzoo.get_model_spec("yolov5s_mamba")
+    assert _fields(spec) == _fields(jzoo.get_model_spec("yolov5s_mamba"))
+    gpt4 = pzoo.get_model_spec("yolov5s_gpt4")
+    assert [l.name for l in spec.layers] == [
+        "MambaFusion" if l.name == "GPT" else l.name for l in gpt4.layers]
 
 
 def _yaml_dict():

@@ -21,6 +21,8 @@ from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.zoo import two_stream_spec
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 
+from test_torch_port_train import _threads  # noqa: F401
+
 GPT_LAYERS = (6, 13, 20, 29)  # the four fusion levels of the gpt4 grammar
 F32_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 on both sides, sum order only
 # deploy path: the fused transformer rounds to bf16 inside (both sides)

@@ -19,6 +19,8 @@ from mmidet_tpu_torch.models.zoo import two_stream_spec
 from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda, transformer_cuda
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 
+from test_torch_port_train import _threads  # noqa: F401
+
 F32_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 on both sides, sum order only
 # deploy pair: the merge kernel rounds the streams to bf16 at four levels on
 # both sides, at the same points; a flipped rounding moves an activation by

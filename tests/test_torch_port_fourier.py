@@ -19,6 +19,8 @@ from mmidet_tpu_torch.models import spec as port_spec_mod
 from mmidet_tpu_torch.models import zoo as port_zoo
 from mmidet_tpu_torch.nn import fusion as pf
 
+from test_torch_port_train import _threads  # noqa: F401
+
 F32_TOL = dict(rtol=1e-4, atol=1e-4)  # f32 on both sides, sum order only
 
 
@@ -154,8 +156,13 @@ def test_get_model_spec_overrides_and_refuses():
     spec = port_zoo.get_model_spec("yolov5l_fuse3_fourier", nc=2)
     assert spec.nc == 2 and spec.no == 21
     assert port_zoo.get_model_spec("yolov5l_fuse3_fourier").nc == 6
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_zoo.get_model_spec("yolov5m_mamba")
+    # the mamba family builds now; an unknown fusion still raises
+    mamba = port_zoo.get_model_spec("yolov5m_mamba")
+    assert [l.name for l in mamba.layers].count("MambaFusion") == 4
+    with pytest.raises(ValueError, match="unknown fusion"):
+        port_zoo.two_stream_spec("m", "nosuch")
+    with pytest.raises(KeyError):
+        port_zoo.get_model_spec("yolov5m_nosuch")
     with pytest.raises(ValueError, match="GPT1_fourier d_model"):
         port_spec_mod.resolve(port_zoo.get_model_spec("yolov5s_fuse3_fourier"))
 

@@ -21,6 +21,8 @@ from mmidet_tpu_torch.nn import resize as tr
 from mmidet_tpu_torch.nn.cem import ContourEnhance
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 
+from test_torch_port_train import _threads  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -18,6 +18,8 @@ from mmidet_tpu_torch.losses import detection as pdet
 from mmidet_tpu_torch.losses import fusion as pfus
 from mmidet_tpu_torch.ops import boxes as pbox
 
+from test_torch_port_train import _threads  # noqa: F401
+
 # f32 on both sides, the same operations in another order: values and
 # gradients within 1e-5 relative (plus 1e-6 absolute near 0)
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -12,6 +12,8 @@ from mmidet_tpu_torch.nn import fusion_cuda as fc
 from mmidet_tpu_torch.nn.fusion import CrossModalTransformer, PatternFusion
 from mmidet_tpu_torch.nn.transformer_cuda import stack_block_params
 
+from test_torch_port_train import _threads  # noqa: F401
+
 _MATS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 

@@ -25,6 +25,7 @@ from mmidet_tpu_torch.data import native as pnative
 from test_torch_port_augment import (_jax_gains,  # noqa: F401
                                      _jax_perspective_draws)
 from test_torch_port_data import rect  # noqa: F401
+from test_torch_port_train import _threads  # noqa: F401
 
 FILL = 114.0 / 255.0
 # images: f32 on both sides; the per-axis taps sum two products a row and

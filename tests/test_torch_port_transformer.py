@@ -15,6 +15,8 @@ from mmidet_tpu_torch.bridge import from_jax_variables
 from mmidet_tpu_torch.nn import transformer_cuda as tc
 from mmidet_tpu_torch.nn.fusion import CrossModalTransformer
 
+from test_torch_port_train import _threads  # noqa: F401
+
 _MATS = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
