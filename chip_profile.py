@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main paths spend their time on one NVIDIA card.
 
-    python3 chip_profile.py [p1 | k2 | train]
+    python3 chip_profile.py [p1 | k2 | train | export]
 
 Builds the same seeded deploy models as ``chip_smoke.py`` (BN folded, bf16,
 batch 16 at 640x640) and prints JSON lines:
@@ -26,6 +26,12 @@ batch 16 at 640x640) and prints JSON lines:
     host wall time with and without the profiler, device busy time and
     idle share (busy time over the unprofiled wall time), device time by the
     PyTorch operator that launched each kernel, and the top kernels;
+  * ``export_breakdown``, only when ``export`` is the only argument, and
+    then alone: the flagship's deploy form (K3 + K4, batch 16 at 640,
+    bf16) as the eager module and as ``deploy.export.export_program``'s
+    graph loaded back (``load_program``), one forward of each under
+    ``torch.profiler`` as ``train_breakdown`` reads it, and the graph's
+    nodes by target (``export_graph``);
   * ``memory_format``: yolov5s_gpt4's forward time in NCHW and in
     channels_last memory format, timed in turns (nchw, cl, cl, nchw) with
     CUDA events;
@@ -416,7 +422,8 @@ def breakdown(torch, model, rgb, ir, groups, label: dict) -> None:
           flush=True)
 
 
-def profiled(torch, fn, label: dict, reps: int = 5) -> None:
+def profiled(torch, fn, label: dict, reps: int = 5,
+             phase: str = "train_breakdown") -> None:
     """``fn()`` once under ``torch.profiler``: the device's busy time,
     device time by launching operator and by kernel (overlapping intervals
     charged once, to the earlier).  The profiler slows the host, so the
@@ -464,7 +471,7 @@ def profiled(torch, fn, label: dict, reps: int = 5) -> None:
     def top(d, n):
         return dict(sorted(d.items(), key=lambda kv: -kv[1][0])[:n])
     print(json.dumps({
-        "phase": "train_breakdown", **label, "wall_ms": plain,
+        "phase": phase, **label, "wall_ms": plain,
         "wall_ms_unprofiled": plain_ms, "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy,
         "idle_share": (1 - busy / plain) if busy else "not measured",
@@ -525,6 +532,46 @@ def train_breakdown(torch, card: str) -> None:
                                      "step (SGD, 3 groups) + EMA update"})
 
 
+def export_breakdown(torch, card: str) -> None:
+    """The flagship's deploy form (BN folded, bf16, K3 + K4, batch 16 at
+    640) as the eager module and as ``export_program``'s graph loaded
+    back, each forward under ``torch.profiler`` (``profiled``), and the
+    exported graph's nodes by target."""
+    from chip_smoke import build_model
+    from mmidet_tpu_torch.deploy.export import export_program, load_program
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    dev = torch.device("cuda", 0)
+    B, S = 16, 640
+    model = build_model(torch, get_model_spec("yolov5l_fuse3_fourier"),
+                        kernel_cem=True, kernel_merge=True).to(
+        dev, torch.bfloat16)
+    prog = load_program(export_program(model, S, B))
+    nodes: dict[str, int] = {}
+    for n in prog.graph.nodes:
+        if n.op == "call_function":
+            nodes[str(n.target)] = nodes.get(str(n.target), 0) + 1
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rgb = torch.rand(B, S, S, 3, generator=gen, device=dev)
+    ir = torch.rand(B, S, S, 3, generator=gen, device=dev)
+    label = {"card": card, "model": "yolov5l_fuse3_fourier", "batch": B,
+             "img": S, "dtype": "bfloat16", "route": "K3 + K4"}
+    print(json.dumps({"phase": "export_graph", **label,
+                      "call_function_nodes": sum(nodes.values()),
+                      "nodes_by_target": dict(sorted(
+                          nodes.items(), key=lambda kv: -kv[1])[:24])}),
+          flush=True)
+    with torch.inference_mode():
+        for fn in (lambda: model(rgb, ir)["pred"], lambda: prog(rgb, ir)):
+            fn()
+            fn()
+        profiled(torch, lambda: model(rgb, ir)["pred"],
+                 {**label, "window": "one eager forward"},
+                 phase="export_breakdown")
+        profiled(torch, lambda: prog(rgb, ir),
+                 {**label, "window": "one forward of the loaded .pt2"},
+                 phase="export_breakdown")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -550,6 +597,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["train"]:
         train_breakdown(torch, card)
+        return 0
+    if sys.argv[1:] == ["export"]:
+        export_breakdown(torch, card)
         return 0
     gemm_tiles(torch, card)
     k3_phases(torch, card)

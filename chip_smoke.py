@@ -110,7 +110,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      the records against the same model's plain versions on the card;
      ``export_deploy_bundle``, ``hub.custom`` and ``attempt_load_ensemble``
      of two bundles, each answering;
-  16. ``mamba_path``: the mamba family at full width, yolov5x_mamba (four
+  16. ``export_path``: a reference-format checkpoint of the flagship
+     (pickled stub ``models.yolo.Model`` objects, fp16, ``model`` and
+     ``ema``, from a stub checkout written here) through
+     ``cli.val.load_model_and_vars``, the EMA taken and no tensor left at
+     its init; ``export_program`` of that deploy model (bf16, K3 + K4,
+     batch 16 at 640) to a ``.pt2`` file and back: the graph's custom ops
+     (K3 1, K4 4) and the launches of a call, ``pred`` against the eager
+     module's (identical, or within two eager runs' spread under
+     ``cudnn.deterministic``), NMS through K2, the two timed in turns; one
+     K3 and one K4 call through the op against the direct ctypes call;
+     the same for yolov5s_gpt4 (K1 4); ``export_onnx`` of the flagship in
+     f32 at 640, decoded back, and at 128 run through the numpy runner
+     against the port's f32 forward on the card (``ONNX_TOL``); the export
+     CLI with ``--onnx`` on the checkpoint;
+  17. ``mamba_path``: the mamba family at full width, yolov5x_mamba (four
      MambaFusion levels: pool to 8x8, forward and backward stacks of four
      Mamba layers over the 128 tokens of both streams, the selective scan
      in plain PyTorch), seeded, BN folded, bf16, batch 16 at 640, forward
@@ -118,29 +132,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      MambaFusion level timed alone at its shapes, and the scan's share of
      it; the f32 gate against the CPU at 320; 3 ``DetectionService``
      requests;
-  17. ``mamba_train_gate``: ``train_f32_gate`` on yolov5s_mamba (the scan's
+  18. ``mamba_train_gate``: ``train_f32_gate`` on yolov5s_mamba (the scan's
      autograd on the card against the CPU's);
-  18. ``yaml_path``: three single-stream models from reference-format YAML
+  19. ``yaml_path``: three single-stream models from reference-format YAML
      text laid out as Ultralytics YOLOv5 v5.0's ``models/hub/
      yolov3-tiny.yaml`` (nn.MaxPool2d, nn.ZeroPad2d), ``yolov3.yaml``
      (repeated Bottleneck rows) and ``yolov5s-transformer.yaml`` (C3TR),
      through ``models.spec.load_yolo_yaml``: each seeded, BN folded, bf16,
      batch 16 at 640, forward + NMS through K2 (one launch asserted), and
      in f32 at 320 against the CPU;
-  19. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
+  20. P1, the conv chain (``tools/_probe_igemm.py``): its entry point
      ``mmidet_tpu_torch.tools.probe_igemm`` at the probe's shapes (batch
      128, 160x160, C = 64 and 128), then batch 16; kernel against plain
      version, with kernel, plain, cuDNN and bound times, TFLOP/s, the
      persistent grid (blocks, tiles, shared memory a block) and ptxas's
      registers and spills;
-  20. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
+  21. P2 and P3, the CEM layout probes: the entry points ``probe_cem_r3``
      and ``probe_cem_fb``, each body against its plain version, timed
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  21. the ``kernels`` summary line, the card line, and the final
+  22. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-20) runs with every launch count set to 0 just before it and
+Every path (8-21) runs with every launch count set to 0 just before it and
 read just after; a kernel of the path that did not launch fails the run.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
@@ -2261,6 +2275,340 @@ def phase_hub_path(torch, dev, card: str):
 
 
 # ------------------------------------------------------------ phases 16-18
+# ------------------------------------------------------------ export_path
+EXPORT_DATA = ROOT / "runs" / "chip_smoke_export"  # git-ignored; removed after
+# the JAX package's ONNX gate: max |onnx - port| / max(1, |port|), boxes in
+# pixels and scores in [0, 1] (tests/test_onnx_export.py)
+ONNX_TOL = 2e-3
+ONNX_IMG = 128
+# a stand-in for the reference checkout's ``models/yolo.py``: its ``Model``
+# holds a state dict by the reference's names, as the pickled
+# ``models.yolo.Model`` of a reference checkpoint does
+STUB_YOLO = """
+import torch
+from torch import nn
+
+
+class Model(nn.Module):
+    def __init__(self, sd):
+        super().__init__()
+        for key, value in sd.items():
+            *path, leaf = key.split(".")
+            mod = self
+            for name in path:
+                if name not in mod._modules:
+                    mod.add_module(name, nn.Module())
+                mod = mod._modules[name]
+            if value.is_floating_point() and "running" not in leaf:
+                mod.register_parameter(leaf, nn.Parameter(value.clone()))
+            else:
+                mod.register_buffer(leaf, value.clone())
+"""
+
+
+def reference_checkpoint(torch, spec):
+    """A reference-format checkpoint of ``spec`` under ``EXPORT_DATA``:
+    a stub checkout (``reference/models/yolo.py``, put on ``sys.path`` as
+    a user's checkout is) and ``best.pt``, pickled ``models.yolo.Model``
+    objects in fp16, ``model`` and an ``ema`` that differs from it by
+    noise.  Returns
+    (path, the EMA's state dict in f32 as the file holds it)."""
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+    repo = EXPORT_DATA / "reference"
+    (repo / "models").mkdir(parents=True, exist_ok=True)
+    (repo / "models" / "__init__.py").write_text("")
+    (repo / "models" / "yolo.py").write_text(STUB_YOLO)
+    sys.path.insert(0, str(repo))
+    from models.yolo import Model
+    torch.manual_seed(0)
+    sd = TwoStreamDetector(spec).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    ema = {k: v + 0.01 * torch.randn(v.shape, generator=gen)
+           if v.is_floating_point() else v for k, v in sd.items()}
+    path = EXPORT_DATA / "best.pt"
+    torch.save({"epoch": -1, "model": Model(sd).half(),
+                "ema": Model(ema).half(), "updates": 7}, path)
+    ema = {k: v.half().float() if v.is_floating_point() else v
+           for k, v in ema.items()}
+    return str(path), ema
+
+
+@contextlib.contextmanager
+def warnings_logged():
+    """The warnings logged inside the block, as a list of messages."""
+    import logging
+    got: list = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            got.append(record.getMessage())
+    handler = Keep(logging.WARNING)
+    logging.getLogger().addHandler(handler)
+    try:
+        yield got
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def graph_ops(prog) -> dict:
+    """The custom-op nodes of a loaded program, counted by name."""
+    out: dict = {}
+    for n in prog.graph.nodes:
+        t = str(n.target)
+        if t.startswith("mmidet."):
+            name = t.split(".")[1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def exported_run(torch, model, name: str, want: dict, reps: int = 5):
+    """``export_program`` of a deploy model at batch 16, 640, saved to a
+    ``.pt2`` file, loaded back and run: its graph's custom ops and its
+    launches against ``want``, its ``pred`` against the eager module's,
+    NMS through K2, and the two forwards timed in turns."""
+    from mmidet_tpu_torch.deploy.export import export_program, load_program
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+    B, S = 16, 640
+    dev = next(model.parameters()).device
+    t0 = time.perf_counter()
+    blob = export_program(model, S, B)
+    t_export = time.perf_counter() - t0
+    f = EXPORT_DATA / f"{name}.pt2"
+    f.write_bytes(blob)
+    t0 = time.perf_counter()
+    prog = load_program(f.read_bytes())
+    t_load = time.perf_counter() - t0
+    nodes = graph_ops(prog)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rgb = torch.rand(B, S, S, 3, generator=gen, device=dev)
+    ir = torch.rand(B, S, S, 3, generator=gen, device=dev)
+    with torch.inference_mode():
+        eager = model(rgb, ir)["pred"]
+        prog(rgb, ir)  # first call
+        torch.cuda.synchronize()
+        zero_counts()
+        got = prog(rgb, ir)
+        torch.cuda.synchronize()
+        launches = read_counts(**want)
+        zero_counts()
+        dets, valid = non_max_suppression(got.float(), conf_thres=0.001,
+                                          iou_thres=0.45)
+        torch.cuda.synchronize()
+        nms_launches = read_counts(nms_greedy=1)
+        err = float((got.float() - eager.float()).abs().max())
+        spread = None
+        if not torch.equal(got, eager):
+            # the same kernels and ATen ops on the same inputs: a
+            # difference can only be an algorithm cuDNN picks per call
+            torch.backends.cudnn.deterministic = True
+            try:
+                spread = float((model(rgb, ir)["pred"].float()
+                                - eager.float()).abs().max())
+            finally:
+                torch.backends.cudnn.deterministic = False
+        turns = {"eager": [], "exported": []}
+        for which in ("eager", "exported", "exported", "eager"):
+            fn = (lambda: model(rgb, ir)["pred"]) if which == "eager" \
+                else (lambda: prog(rgb, ir))
+            turns[which].append(time_ms(fn, reps=reps, warmup=1))
+    rec = {"model": name, "batch": B, "img": S,
+           "dtype": str(next(model.parameters()).dtype).split(".")[1],
+           "export_s": t_export, "load_s": t_load, "pt2_mb": len(blob) / 1e6,
+           "graph_ops": nodes, "launches": launches,
+           "nms_launches": nms_launches, "identical": bool(
+               torch.equal(got, eager)), "max_abs_err": err,
+           "eager_spread": spread,
+           "kept_per_image": float(valid.sum(1).float().mean()),
+           "order": "eager, exported, exported, eager",
+           "eager_ms_turns": turns["eager"],
+           "exported_ms_turns": turns["exported"],
+           "eager_ms": statistics.mean(turns["eager"]),
+           "exported_ms": statistics.mean(turns["exported"])}
+    if nodes != want or tuple(got.shape) != tuple(eager.shape) or \
+            not bool(torch.isfinite(dets).all()) or \
+            not (rec["identical"] or (spread is not None and err <= spread)):
+        raise AssertionError(f"export_path {name}: {rec}")
+    del prog
+    return rec
+
+
+def op_dispatch(torch, dev):
+    """One K3 call (the flagship's, (16, 640, 640, 3) bf16) and one K4 call
+    (its P5 level, (16, 20, 20, 1024), L = 8) through the custom op against
+    the direct ctypes call of the op's CUDA implementation, timed in turns
+    (op, direct, direct, op), each ms a CUDA-event median around the call:
+    the dispatcher's cost per call."""
+    from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda
+    from mmidet_tpu_torch.nn import transformer_cuda as tc
+    gen = torch.Generator().manual_seed(11)
+    x = torch.rand(16, 640, 640, 3, generator=gen).to(dev, torch.bfloat16)
+    w = [(0.2 * torch.randn(s, generator=gen)).to(dev) for s in (
+        (3, 3, 3, 24), (24,), (24,), (24,), (3, 3, 24, 3), (3,))]
+    pack = cem_cuda.pack_cem_weights(*w, torch.bfloat16)
+    st = random_stack(1024, 8, gen, dev)
+    ws = tc.prepare_stack(st, dev)
+    stack = [ws[k] for k in tc.STACK_KEYS]
+    s = (torch.randn(16, 20, 20, 1024, generator=gen) * 0.5).to(
+        dev, torch.bfloat16)
+    pos = (0.2 * torch.randn(1, 128, 1024, generator=gen)).to(dev)
+    ln = (torch.ones(1024, device=dev), torch.zeros(1024, device=dev))
+    calls = {"fused_cem": (cem_cuda.cem_op, cem_cuda._fused_cem_cuda,
+                           (x, *w, pack)),
+             "fused_gpt_merge": (fusion_cuda.gpt_merge_op,
+                                 fusion_cuda._gpt_merge_cuda,
+                                 (s, s, stack, pos, *ln, 8, None, None))}
+    out = {}
+    with torch.inference_mode():
+        for name, (op, direct, args) in calls.items():
+            a, b = op(*args), direct(*args)
+            same = all(torch.equal(u, v) for u, v in zip(
+                *((t,) if torch.is_tensor(t) else t for t in (a, b))))
+            turns = {"op": [], "direct": []}
+            for which in ("op", "direct", "direct", "op"):
+                fn = op if which == "op" else direct
+                turns[which].append(time_ms(lambda: fn(*args), reps=20))
+            out[name] = {"identical": same, "op_ms_turns": turns["op"],
+                         "direct_ms_turns": turns["direct"],
+                         "op_ms": statistics.mean(turns["op"]),
+                         "direct_ms": statistics.mean(turns["direct"])}
+            if not same:
+                raise AssertionError(f"op_dispatch {name}: the op and the "
+                                     "direct call disagree")
+    return out
+
+
+def phase_export_path(torch, dev, card: str):
+    """The deploy user's path from the weights they hold to an artifact
+    they ship: (a) a reference-format checkpoint of the flagship (pickled
+    stub modules, fp16, ``model`` + ``ema``) through
+    ``cli.val.load_model_and_vars``: the EMA taken, no tensor left at its
+    init;
+    (b) ``export_program`` of that deploy model (BN folded, bf16, K3 + K4,
+    batch 16 at 640) to a ``.pt2`` and back: K3 once and K4 four times in
+    the graph and in the launch counts, ``pred`` against the eager
+    module's, NMS through K2, both timed in turns; the op's dispatch cost
+    against the direct call for one K3 and one K4 call; (c) the same for
+    yolov5s_gpt4 (K1 four times); (e) ``deploy.export.main --onnx`` on
+    the checkpoint; (d) its ``model.onnx``, the flagship in f32 at 640,
+    decoded back (node and initializer counts), and ``export_onnx`` at 128
+    run through the numpy runner against the port's plain f32 forward on
+    the card."""
+    import shutil
+
+    import numpy as np
+
+    from mmidet_tpu_torch.cli import val
+    from mmidet_tpu_torch.deploy import export, onnx_np, onnx_proto
+    from mmidet_tpu_torch.deploy.onnx_export import export_onnx
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    from mmidet_tpu_torch.nn.fuse import fold_batchnorm
+
+    t_phase = time.perf_counter()
+    flagship = "yolov5l_fuse3_fourier"
+    spec = get_model_spec(flagship)
+    shutil.rmtree(EXPORT_DATA, ignore_errors=True)
+    EXPORT_DATA.mkdir(parents=True)
+    rec = {"phase": "export_path", "card": card, "seconds": {}}
+    secs = rec["seconds"]
+    try:
+        # (a) the reference checkpoint through the val CLI's loader: no
+        # tensor of the model left at its init (``build_model`` warns of
+        # any), and the tensors that BN folding leaves as they are (the
+        # transformers', the Detect head's) are the EMA's in bf16
+        t0 = time.perf_counter()
+        path, ema = reference_checkpoint(torch, spec)
+        with warnings_logged() as warned:
+            model, _ = val.load_model_and_vars(flagship, path, spec.nc,
+                                               device=dev)
+        got = model.state_dict()
+        unfolded = [k for k in got if "trans_blocks" in k or "pos_emb" in k
+                    or f"model.{len(spec.layers) - 1}." in k]
+        rec["checkpoint"] = {
+            "warnings": warned, "compared": len(unfolded),
+            "ema_taken": bool(unfolded) and all(torch.equal(
+                got[k], ema[k].to(dev, torch.bfloat16)) for k in unfolded),
+            "flags": val.kernel_routes(spec, True)}
+        del got
+        secs["checkpoint"] = time.perf_counter() - t0
+        if warned or not rec["checkpoint"]["ema_taken"]:
+            raise AssertionError(f"export_path checkpoint: {rec}")
+        # (b) the flagship's deploy form, exported
+        t0 = time.perf_counter()
+        rec["flagship"] = exported_run(torch, model, flagship,
+                                       {"fused_cem": 1, "fused_gpt_merge": 4})
+        del model
+        torch.cuda.empty_cache()
+        secs["flagship"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["op_dispatch"] = op_dispatch(torch, dev)
+        secs["op_dispatch"] = time.perf_counter() - t0
+        # (c) yolov5s_gpt4 through K1
+        t0 = time.perf_counter()
+        gpt4 = build_model(torch, get_model_spec("yolov5s_gpt4"),
+                           kernel_fusion=True).to(dev, torch.bfloat16)
+        rec["gpt4"] = exported_run(torch, gpt4, "yolov5s_gpt4",
+                                   {"fused_token_transformer": 4})
+        del gpt4
+        torch.cuda.empty_cache()
+        secs["gpt4"] = time.perf_counter() - t0
+        # (e) the export CLI on the checkpoint, with --onnx: its bundle's
+        # model.onnx is the flagship's ONNX graph at 640 in f32
+        t0 = time.perf_counter()
+        out = EXPORT_DATA / "bundle"
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            export.main(["--cfg", flagship, "--weights", path, "--out",
+                         str(out), "--onnx"], device=dev)
+        files = sorted(p.name for p in out.iterdir())
+        rec["cli"] = {"files": files,
+                      "said": said.getvalue().strip().splitlines()}
+        secs["cli"] = time.perf_counter() - t0
+        if not {"model.json", "model.pt", "model.pt2",
+                "model.onnx"} <= set(files):
+            raise AssertionError(f"export_path cli: {rec}")
+        # (d) the ONNX leg on the checkpoint's weights, f32: the graph at
+        # 640 decoded back, and at 128 run in numpy against the card
+        t0 = time.perf_counter()
+        g640 = onnx_proto.Model.load(str(out / "model.onnx"))
+        onnx_mb = (out / "model.onnx").stat().st_size / 1e6
+        shutil.rmtree(out)
+        f32 = fold_batchnorm(val.build_model(spec, ema).eval())
+        t1 = time.perf_counter()
+        export_onnx(spec, f32, ONNX_IMG, str(EXPORT_DATA / "small.onnx"))
+        t_emit = time.perf_counter() - t1
+        small = onnx_proto.Model.load(str(EXPORT_DATA / "small.onnx"))
+        gen = torch.Generator().manual_seed(12)
+        rgb, ir = (torch.rand(1, ONNX_IMG, ONNX_IMG, 3, generator=gen)
+                   for _ in range(2))
+        t0 = time.perf_counter()
+        got = onnx_np.run(small, {"rgb": rgb.permute(0, 3, 1, 2).numpy(),
+                                  "ir": ir.permute(0, 3, 1, 2).numpy()})
+        t_run = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            ref = f32.to(dev)(rgb.to(dev), ir.to(dev))["pred"].cpu().numpy()
+        err = float((np.abs(got["pred"] - ref)
+                     / np.maximum(1.0, np.abs(ref))).max())
+        rec["onnx"] = {
+            "img": 640, "nodes": len(g640.graph.nodes),
+            "initializers": len(g640.graph.initializers), "mb": onnx_mb,
+            "run_img": ONNX_IMG, "emit_s": t_emit, "run_s": t_run,
+            "max_rel_err": err, "tol": ONNX_TOL,
+            "pred_shape": list(got["pred"].shape)}
+        del f32, g640
+        secs["onnx"] = time.perf_counter() - t0
+        if err >= ONNX_TOL or got["pred"].shape != ref.shape:
+            raise AssertionError(f"export_path onnx: {rec}")
+    finally:
+        sys.path[:] = [p for p in sys.path
+                       if p != str(EXPORT_DATA / "reference")]
+        shutil.rmtree(EXPORT_DATA, ignore_errors=True)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def mamba_levels(torch, model, rgb, ir, reps: int = 10):
     """Each MambaFusion level of ``model`` timed alone on the inputs the
     forward gives it (CUDA events), and the selective scan's share of it:
@@ -2994,6 +3342,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     hub_rec = phase_hub_path(torch, dev, name)
+    exported = phase_export_path(torch, dev, name)
     mamba, _ = phase_path(
         torch, dev, name, "mamba_path", "mamba_vs_plain", "yolov5x_mamba",
         {"kernel_fusion": False}, {"nms_greedy": 1}, reps=5,
@@ -3025,6 +3374,9 @@ def main() -> int:
          # hub.yolov5s_gpt4 on 4 images: 4 a forward, 3 forwards with TTA
          "hub_launches": {k: r["launches"]["fused_token_transformer"]
                           for k, r in hub_rec["runs"].items()},
+         # the exported yolov5s_gpt4 program, loaded back: 4 a call
+         "export_launches": exported["gpt4"]["launches"][
+             "fused_token_transformer"],
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": summed(k1_path, "ms"), "plain_ms": summed(k1_path, "plain_ms"),
          "bound_ms": summed(k1_path, "bound_ms"),
@@ -3056,6 +3408,8 @@ def main() -> int:
          "int8_launches": int8["launches"]["fused_cem"],
          "hub_launches": {k: r["launches"]["fused_cem"]
                           for k, r in hub_rec["runs"].items()},
+         # the exported flagship program, loaded back: 1 a call
+         "export_launches": exported["flagship"]["launches"]["fused_cem"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
@@ -3066,6 +3420,9 @@ def main() -> int:
          "launches": flagship["fused_gpt_merge"],
          "serve_launches": serving["launches"]["fused_gpt_merge"],
          "int8_launches": int8["launches"]["fused_gpt_merge"],
+         # the exported flagship program, loaded back: 4 a call
+         "export_launches": exported["flagship"]["launches"][
+             "fused_gpt_merge"],
          "max_abs_err": max(r["max_abs_err"] for r in k4),
          "ms": summed(k4, "ms"), "plain_ms": summed(k4, "plain_ms"),
          "bound_ms": summed(k4, "bound_ms"),

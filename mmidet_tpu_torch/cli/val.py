@@ -7,9 +7,10 @@ Counterpart of ``mmidet_tpu/cli/val.py``.  Runs on the card:
         --data data.yaml --weights model.pt
 
 ``main(argv, device="cpu")`` runs it on the CPU (a keyword argument, not
-a flag).  Weights come from a ``.pt`` state dict by the reference's names
-(a bare dict, or ``{"model": sd}`` / ``{"ema": sd}``) or a deploy bundle
-dir (``deploy/export.py``); without ``--weights`` the model starts from a
+a flag).  Weights come from a ``.pt`` by the reference's names (a state
+dict, ``{"model": sd}`` / ``{"ema": sd}``, or the reference's own
+checkpoint of pickled modules) or a deploy bundle dir
+(``deploy/export.py``); without ``--weights`` the model starts from a
 seeded fresh init.  ``--int8`` runs the s8-storage deploy form
 (``nn/quant.py``), calibrated on the first val batch.
 """
@@ -34,13 +35,17 @@ from mmidet_tpu_torch.nn.quant import make_quant_deploy
 from mmidet_tpu_torch.utils.general import increment_path, set_logging
 
 
-def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
-    """A ``.pt`` holding a state dict by the reference's names: the dict
-    itself, or ``{"ema": sd}`` (preferred) / ``{"model": sd}``, as
-    ``mmidet_tpu/train/checkpoint.py:load_torch_checkpoint`` reads it; or
-    a deploy bundle dir (``deploy/export.py``), as the JAX package's
+def load_state_dict_file(path: str, reference_repo: str | None = None
+                         ) -> dict[str, torch.Tensor]:
+    """The weights in ``path`` by the reference's names: a ``.pt`` read by
+    ``train.checkpoint.load_torch_checkpoint`` (a state dict, the port's
+    checkpoint, or the reference's checkpoint of pickled modules, EMA
+    preferred, f32; ``reference_repo``: the reference checkout its pickle
+    imports, None here as in the JAX package's ``cli/val.py:35-40``), or a
+    deploy bundle dir (``deploy/export.py``), as the JAX package's
     ``train/trainer.py:188-191`` reads one."""
     from mmidet_tpu_torch.deploy.export import is_bundle, load_deploy_bundle
+    from mmidet_tpu_torch.train.checkpoint import load_torch_checkpoint
     if os.path.isdir(path):
         if not is_bundle(path):
             raise ValueError(f"{path} is a directory without model.json: "
@@ -48,17 +53,7 @@ def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
                              "(orbax checkpoints are the JAX package's "
                              "format)")
         return load_deploy_bundle(path)[1]
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt
-    if isinstance(ckpt, dict):
-        if ckpt.get("ema") is not None:
-            sd = ckpt["ema"]
-        elif "model" in ckpt:
-            sd = ckpt["model"]
-    if not isinstance(sd, dict) or not all(
-            isinstance(v, torch.Tensor) for v in sd.values()):
-        raise ValueError(f"{path} holds no state dict of tensors")
-    return sd
+    return load_torch_checkpoint(path, reference_repo=reference_repo)
 
 
 @torch.no_grad()

@@ -60,6 +60,12 @@ SIGNATURES = {
 }
 LIBRARIES = tuple(sorted({lib for lib, _, _ in SIGNATURES.values()}))
 
+# the namespace of the custom ops (``torch.library``) that K1, K3 and K4
+# are registered as, so that ``torch.export`` can trace a model that
+# reaches them: ``torch.ops.mmidet.fused_token_transformer``,
+# ``.fused_cem`` and ``.fused_gpt_merge``
+OPS = "mmidet"
+
 _loaded: dict[str, ctypes.CDLL] = {}  # by library
 _entry: dict[str, object] = {}  # C functions, argtypes set, by entry point
 

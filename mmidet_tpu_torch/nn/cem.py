@@ -193,7 +193,11 @@ class ContourEnhance(nn.Module):
                   self.sobel.sobel_factor.flatten(), self.sobel.bias,
                   self.conv3.weight.permute(2, 3, 1, 0), self.conv3.bias)
         pack = None
-        if x.device.type == "cuda":
+        if x.device.type == "cuda" and torch.compiler.is_exporting():
+            # a traced graph has no storage to stamp: the packing goes
+            # into the graph and runs on every call
+            pack = pack_cem_weights(*params, x.dtype)
+        elif x.device.type == "cuda":
             # the kernel's weight buffer is kept until a parameter changes
             key = (x.device, x.dtype, kernels.stamp(self.parameters()))
             if key != self._pack_key:

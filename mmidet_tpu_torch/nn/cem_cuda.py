@@ -16,6 +16,13 @@ A bf16 ``x`` takes the bf16 form of the Pallas kernel, an f32 ``x`` its
 rounds in bf16 (``cem_pallas.py:171-243, 318``): w2, ``bank * factor`` and w3
 to bf16; y, its channel sum, ``y + e``, z and ``z + x`` to bf16; every sum
 and both leaky-ReLUs in f32.  In f32 nothing is rounded.
+
+The kernel is the custom op ``mmidet::fused_cem`` (``torch.library``): its
+CUDA implementation launches the kernel, its CPU implementation is the
+plain version, and its fake implementation gives the output's shape, so
+that ``torch.export`` traces a model that reaches it.  The wrapper
+``fused_cem`` calls the op, so an eager call and an exported graph take
+the same route.
 """
 
 from __future__ import annotations
@@ -95,7 +102,8 @@ def pack_cem_weights(w2, b2, factor, bias_s, w3, b3,
     """The kernel's one weight buffer (1660 floats): w2 as [24][27 + 1] with
     taps in (ky, kx, c) order, ``bank * factor`` as [24][9 + 3], w3 as
     [9][24][3], then b2, bias_s, b3.  Matrices are rounded to ``dtype``
-    here, so that the kernel reads f32 values in either form."""
+    here, so that the kernel reads f32 values in either form.  Plain
+    tensor ops, so that ``torch.export`` traces it into a graph."""
     rnd = _rounder(dtype)
     dev = w2.device
     w2, b2, factor, bias_s, w3, b3 = (
@@ -114,23 +122,8 @@ def pack_cem_weights(w2, b2, factor, bias_s, w3, b3,
     return pack
 
 
-def fused_cem(x, w2, b2, factor, bias_s, w3, b3,
-              pack: torch.Tensor | None = None) -> torch.Tensor:
-    """The CEM output (B, H, W, 3) in ``x.dtype``.  On a CUDA tensor this
-    launches the kernel (one launch on the current stream); on a CPU tensor
-    it runs the plain version.  The kernel reads and writes NHWC-contiguous
-    memory, which the wrapper makes so explicitly.  ``pack``: the result of
-    ``pack_cem_weights`` for these weights and ``x.dtype`` on ``x.device``,
-    from a caller that keeps it between calls; packed here otherwise (a
-    dozen small launches)."""
-    if x.device.type == "cpu":
-        return fused_cem_reference(x, w2, b2, factor, bias_s, w3, b3)
-    if x.device.type != "cuda":
-        raise ValueError(f"no CEM kernel for {x.device}")
-    if pack is None:
-        _check_params(x, w2, b2, factor, bias_s, w3, b3)
-    else:  # the kernel reads the weights from the pack alone
-        _check_x(x)
+def _fused_cem_cuda(x, w2, b2, factor, bias_s, w3, b3, pack):
+    """The op's CUDA implementation: one launch of the kernel, counted."""
     b, h, w, _ = x.shape
     if min(b, h, w) < 1 or b > 65535:
         raise ValueError(f"CEM kernel takes 1 <= B <= 65535 and H, W >= 1; "
@@ -152,6 +145,43 @@ def fused_cem(x, w2, b2, factor, bias_s, w3, b3,
     kernels.check("cem", err)
     fused_cem.launches += 1
     return out
+
+
+def _fused_cem_cpu(x, w2, b2, factor, bias_s, w3, b3, pack):
+    return fused_cem_reference(x, w2, b2, factor, bias_s, w3, b3)
+
+
+cem_op = torch.library.custom_op(
+    f"{kernels.OPS}::fused_cem", _fused_cem_cpu, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor x, Tensor w2, Tensor b2, Tensor factor, Tensor bias_s, "
+           "Tensor w3, Tensor b3, Tensor? pack) -> Tensor")
+cem_op.register_kernel("cuda", _fused_cem_cuda)
+
+
+@cem_op.register_fake
+def _(x, w2, b2, factor, bias_s, w3, b3, pack):
+    return x.new_empty(x.shape)
+
+
+def fused_cem(x, w2, b2, factor, bias_s, w3, b3,
+              pack: torch.Tensor | None = None) -> torch.Tensor:
+    """The CEM output (B, H, W, 3) in ``x.dtype``, through the op
+    ``mmidet::fused_cem``.  On a CUDA tensor this launches the kernel (one
+    launch on the current stream); on a CPU tensor it runs the plain
+    version.  The kernel reads and writes NHWC-contiguous memory, which
+    the op makes so explicitly.  ``pack``: the result of
+    ``pack_cem_weights`` for these weights and ``x.dtype`` on
+    ``x.device``, from a caller that keeps it between calls; packed in the
+    op otherwise (a dozen small launches).  The plain version reads the
+    weights themselves."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no CEM kernel for {x.device}")
+    if pack is None or x.device.type == "cpu":
+        _check_params(x, w2, b2, factor, bias_s, w3, b3)
+    else:  # the kernel reads the weights from the pack alone
+        _check_x(x)
+    return cem_op(x, w2, b2, factor, bias_s, w3, b3, pack)
 
 
 fused_cem.launches = 0

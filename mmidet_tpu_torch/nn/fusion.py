@@ -170,9 +170,13 @@ class _TokenTransformer(nn.Module):
     def _stacked(self, device):
         """The blocks' stacked weights for the kernels.  On a card they are
         the kernels' own buffers (``prepare_stack``), kept until a
-        parameter changes."""
+        parameter changes; in a graph that ``torch.export`` traces, which
+        has no storage to stamp, they are made on every call."""
         if device.type != "cuda":
             return stack_block_params(self.trans_blocks)
+        if torch.compiler.is_exporting():
+            return prepare_stack(stack_block_params(self.trans_blocks),
+                                 device)
         key = (device, kernels.stamp(self.trans_blocks.parameters()))
         if key != self._stack_key:
             self._stack = prepare_stack(
@@ -185,13 +189,13 @@ class _TokenTransformer(nn.Module):
         gh, gw = self.grid
         tok = torch.cat([rgb_p.flatten(2).transpose(1, 2),
                          ir_p.flatten(2).transpose(1, 2)], 1)
-        x = self.drop(tok + self.pos_emb.to(tok.dtype))
-        if self.use_kernel and not self.training:
+        x = tok + self.pos_emb.to(tok.dtype)
+        if self.use_kernel and not self.training:  # eval: no dropout
             x = fused_token_transformer(
                 x.to(torch.bfloat16), self._stacked(x.device),
                 self.num_heads).to(tok.dtype)
         else:
-            x = self.trans_blocks(x)
+            x = self.trans_blocks(self.drop(x))
         x = self.ln_f(x)
         rgb_o = x[:, :gh * gw].transpose(1, 2).reshape(b, -1, gh, gw)
         ir_o = x[:, gh * gw:].transpose(1, 2).reshape(b, -1, gh, gw)

@@ -19,6 +19,15 @@ pos-emb sum is bf16; the layers round as the token-transformer kernel;
 ``ln_f``'s output is bf16; the upsample runs in f32 on the bf16 tokens, rows
 first, then columns, and is rounded to bf16 once; the sum into the stream
 is bf16.
+
+The kernel is the custom op ``mmidet::fused_gpt_merge``
+(``torch.library``): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and its fake implementation gives the
+two outputs' shapes, so that ``torch.export`` traces a model that reaches
+it.  The wrapper ``fused_gpt_merge`` calls the op, so an eager call and an
+exported graph take the same route.  The op takes the stacked weights as
+``prepare_stack`` makes them, a list in ``STACK_KEYS`` order, and the gate
+as two optional tensors.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import torch.nn.functional as F
 
 from mmidet_tpu_torch import kernels
 from mmidet_tpu_torch.nn.transformer_cuda import (
-    LN_EPS, TOKENS, fused_token_transformer_reference, prepare_stack)
+    LN_EPS, STACK_KEYS, TOKENS, fused_token_transformer_reference,
+    prepare_stack)
 
 GRID = 8  # tokens per side and stream
 
@@ -128,37 +138,29 @@ def fused_gpt_merge_reference(rgb, ir, stacked: dict, pos_emb, lnf_scale,
     return (r32 + up_r).to(bf16), (i32 + up_i).to(bf16)
 
 
-def fused_gpt_merge(rgb, ir, stacked: dict, pos_emb, lnf_scale, lnf_bias,
-                    num_heads: int = 8, gate: dict | None = None):
-    """(rgb + up(trans_rgb), ir + up(trans_ir)), both (B, H, W, C) bf16.
-    On CUDA tensors this launches the kernel (one call; 5 launches plus
-    K1's 7 per layer, its products on the TMA + wgmma GEMM, all on the
-    current stream); on CPU tensors it runs the plain version.  The kernel
-    reads and writes NHWC-contiguous memory, which the wrapper makes so
-    explicitly.  ``stacked``: ``stack_block_params``' dict,
-    or on a card what ``prepare_stack`` made of it."""
-    if rgb.device.type == "cpu":
-        return fused_gpt_merge_reference(rgb, ir, stacked, pos_emb,
-                                         lnf_scale, lnf_bias, num_heads, gate)
-    if rgb.device.type != "cuda":
-        raise ValueError(f"no GPT-merge kernel for {rgb.device}")
-    _check(rgb, ir, stacked, pos_emb, num_heads, gate)
+def _gpt_merge_cuda(rgb, ir, stack, pos_emb, lnf_scale, lnf_bias,
+                    num_heads, g1, g2):
+    """The op's CUDA implementation: one call of the kernel on the
+    prepared weights (``STACK_KEYS`` order), counted."""
     b, h, w, c = rgb.shape
     dev = rgb.device
     bf16, f32 = torch.bfloat16, torch.float32
-    ws = prepare_stack(stacked, dev)
-    if ws["wqkv"].device != dev:
-        raise ValueError(f"prepared weights lie on {ws['wqkv'].device}, the "
-                         f"streams on {dev}")
+    ws = dict(zip(STACK_KEYS, stack))
+    if any(t.device != dev for t in stack):
+        raise ValueError(f"prepared weights must lie on {dev}, the streams' "
+                         "device")
+    ws = {k: t if t.is_contiguous() else t.contiguous()
+          for k, t in ws.items()}
     L = ws["wo"].shape[0]
     rin = rgb.to(bf16).contiguous()  # (B, H, W, C) row-major
     iin = ir.to(dev, bf16).contiguous()
     pos = pos_emb.to(dev, f32).reshape(TOKENS, c).contiguous()
     lns = lnf_scale.to(dev, f32).contiguous()
     lnb = lnf_bias.to(dev, f32).contiguous()
-    if gate is not None:
-        g1 = gate["g1"].to(dev, bf16).contiguous()
-        g2 = gate["g2"].to(dev, bf16).contiguous()
+    gated = g1 is not None
+    if gated:
+        g1 = g1.to(dev, bf16).contiguous()
+        g2 = g2.to(dev, bf16).contiguous()
     else:
         g1 = g2 = pos  # never read
     rout, iout = torch.empty_like(rin), torch.empty_like(iin)
@@ -177,10 +179,53 @@ def fused_gpt_merge(rgb, ir, stacked: dict, pos_emb, lnf_scale, lnf_bias,
              ws["w1"].data_ptr(), ws["b1"].data_ptr(), ws["w2"].data_ptr(),
              ws["b2"].data_ptr(), tok.data_ptr(), y.data_ptr(),
              qkv.data_ptr(), ctx.data_ptr(), hdn.data_ptr(), b, h, w, c, L,
-             num_heads, int(gate is not None), kernels.stream_ptr(rgb))
+             num_heads, int(gated),
+             kernels.stream_ptr(rgb))
     kernels.check("gpt_merge", err)
     fused_gpt_merge.launches += 1
     return rout, iout
+
+
+def _gpt_merge_cpu(rgb, ir, stack, pos_emb, lnf_scale, lnf_bias, num_heads,
+                   g1, g2):
+    gate = None if g1 is None else {"g1": g1, "g2": g2}
+    return fused_gpt_merge_reference(rgb, ir, dict(zip(STACK_KEYS, stack)),
+                                     pos_emb, lnf_scale, lnf_bias, num_heads,
+                                     gate)
+
+
+gpt_merge_op = torch.library.custom_op(
+    f"{kernels.OPS}::fused_gpt_merge", _gpt_merge_cpu, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor rgb, Tensor ir, Tensor[] stack, Tensor pos_emb, "
+           "Tensor lnf_scale, Tensor lnf_bias, int num_heads, Tensor? g1, "
+           "Tensor? g2) -> (Tensor, Tensor)")
+gpt_merge_op.register_kernel("cuda", _gpt_merge_cuda)
+
+
+@gpt_merge_op.register_fake
+def _(rgb, ir, stack, pos_emb, lnf_scale, lnf_bias, num_heads, g1, g2):
+    return (rgb.new_empty(rgb.shape, dtype=torch.bfloat16),
+            ir.new_empty(ir.shape, dtype=torch.bfloat16))
+
+
+def fused_gpt_merge(rgb, ir, stacked: dict, pos_emb, lnf_scale, lnf_bias,
+                    num_heads: int = 8, gate: dict | None = None):
+    """(rgb + up(trans_rgb), ir + up(trans_ir)), both (B, H, W, C) bf16,
+    through the op ``mmidet::fused_gpt_merge``.  On CUDA tensors this
+    launches the kernel (one call; 5 launches plus K1's 7 per layer, its
+    products on the TMA + wgmma GEMM, all on the current stream); on CPU
+    tensors it runs the plain version.  The kernel reads and writes
+    NHWC-contiguous memory, which the op makes so explicitly.
+    ``stacked``: ``stack_block_params``' dict, or what ``prepare_stack``
+    made of it."""
+    if rgb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no GPT-merge kernel for {rgb.device}")
+    _check(rgb, ir, stacked, pos_emb, num_heads, gate)
+    ws = prepare_stack(stacked, rgb.device)
+    g1, g2 = (None, None) if gate is None else (gate["g1"], gate["g2"])
+    return gpt_merge_op(rgb, ir, [ws[k] for k in STACK_KEYS], pos_emb,
+                        lnf_scale, lnf_bias, num_heads, g1, g2)
 
 
 fused_gpt_merge.launches = 0

@@ -13,6 +13,14 @@ every accumulation are f32.
 Stacked weights use torch's Linear layout, ``(L, out, in)``; the dict keys
 are the JAX package's (``ln1_scale`` .. ``b2``).
 
+The kernel is the custom op ``mmidet::fused_token_transformer``
+(``torch.library``): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version, and its fake implementation gives the
+output's shape, so that ``torch.export`` traces a model that reaches it.
+The wrapper ``fused_token_transformer`` calls the op, so an eager call and
+an exported graph take the same route.  The op takes the stacked weights as
+``prepare_stack`` makes them, a list in ``STACK_KEYS`` order.
+
 ``layer_gemm`` runs the kernel's layer GEMM (TMA + wgmma, one of three
 epilogues) alone, beside its plain version ``layer_gemm_reference``, so that
 tests and ``chip_smoke.py`` can hold and time it product by product.
@@ -33,6 +41,9 @@ LN_EPS = 1e-5
 EPILOGUES = {"bias": 0, "gelu": 1, "residual": 2}
 _VECTORS = ("ln1_scale", "ln1_bias", "bq", "bk", "bv", "bo", "ln2_scale",
             "ln2_bias", "b1", "b2")
+# the prepared weights (``prepare_stack``) as the custom ops take them
+STACK_KEYS = ("ln1_scale", "ln1_bias", "wqkv", "bqkv", "wo", "bo",
+              "ln2_scale", "ln2_bias", "w1", "b1", "w2", "b2")
 
 
 def stack_block_params(blocks) -> dict[str, torch.Tensor]:
@@ -65,28 +76,44 @@ def prepare_stack(stacked: dict, device) -> dict[str, torch.Tensor]:
     vectors f32, contiguous on ``device``, q/k/v joined into ``wqkv``
     ``(L, 3d, d)`` and ``bqkv`` ``(L, 3d)``.  A dict that already holds
     ``wqkv`` is taken as prepared, so a caller may keep the result between
-    calls."""
+    calls.  Plain tensor ops (no grad mode switched), so that
+    ``torch.export`` traces it into a graph."""
     if "wqkv" in stacked:
         return stacked
     bf16, f32 = torch.bfloat16, torch.float32
-    with torch.no_grad():
-        ws = {k: t.to(device, f32 if k in _VECTORS else bf16).contiguous()
-              for k, t in stacked.items()}
-        ws["wqkv"] = torch.cat([ws.pop("wq"), ws.pop("wk"), ws.pop("wv")], 1)
-        ws["bqkv"] = torch.cat([ws.pop("bq"), ws.pop("bk"), ws.pop("bv")], 1)
+    ws = {k: t.detach().to(device, f32 if k in _VECTORS else bf16)
+          .contiguous() for k, t in stacked.items()}
+    ws["wqkv"] = torch.cat([ws.pop("wq"), ws.pop("wk"), ws.pop("wv")], 1)
+    ws["bqkv"] = torch.cat([ws.pop("bq"), ws.pop("bk"), ws.pop("bv")], 1)
     return ws
+
+
+def _split_qkv(stacked: dict) -> dict:
+    """A prepared stack's ``wqkv``/``bqkv`` back as ``wq``.. ``bv`` views
+    (the plain versions read those); an unprepared one as it is."""
+    if "wqkv" not in stacked:
+        return stacked
+    st = dict(stacked)
+    d = st["wo"].shape[1]
+    for i, (w, b) in enumerate((("wq", "bq"), ("wk", "bk"), ("wv", "bv"))):
+        st[w] = st["wqkv"][:, i * d:(i + 1) * d]
+        st[b] = st["bqkv"][:, i * d:(i + 1) * d]
+    return st
 
 
 def fused_token_transformer_reference(x: torch.Tensor, stacked: dict,
                                       num_heads: int = 8) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (B, 128, d) -> (B, 128, d)
     bf16.  Products run in f32 on bf16-rounded operands, which is what the
-    tensor cores compute up to the order of the f32 sums."""
+    tensor cores compute up to the order of the f32 sums.  ``stacked``:
+    ``stack_block_params``' dict or ``prepare_stack``'s (the same values
+    once rounded)."""
     b, n, d = x.shape
     dk = d // num_heads
     inv = 1.0 / math.sqrt(dk)
     bf16 = torch.bfloat16
-    L = stacked["wq"].shape[0]
+    stacked = _split_qkv(stacked)
+    L = stacked["wo"].shape[0]
 
     def w(name, l):
         return stacked[name][l].to(bf16).float()
@@ -111,18 +138,10 @@ def fused_token_transformer_reference(x: torch.Tensor, stacked: dict,
     return a
 
 
-def fused_token_transformer(x: torch.Tensor, stacked: dict,
-                            num_heads: int = 8) -> torch.Tensor:
-    """(B, 128, d) tokens, pos-emb added -> (B, 128, d) bf16, ``ln_f`` not
-    applied.  On a CUDA tensor this launches the kernel (one call; per
-    layer 7 launches on the current stream: two LayerNorms, the attention
-    and the four products on the TMA + wgmma GEMM); on a CPU tensor it runs
-    the plain version.  ``stacked``: ``stack_block_params``' dict, or on a
-    card what ``prepare_stack`` made of it."""
-    if x.device.type == "cpu":
-        return fused_token_transformer_reference(x, stacked, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"no token-transformer kernel for {x.device}")
+def _token_transformer_cuda(x: torch.Tensor, stack: list[torch.Tensor],
+                            num_heads: int) -> torch.Tensor:
+    """The op's CUDA implementation: one call of the kernel on the
+    prepared weights (``STACK_KEYS`` order), counted."""
     b, n, d = x.shape
     dk = d // num_heads
     if n != TOKENS or d % 8 or d % num_heads or dk > 128:
@@ -130,7 +149,7 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
                          f"and d/heads at most 128; got {tuple(x.shape)} "
                          f"with {num_heads} heads")
     bf16 = torch.bfloat16
-    ws = prepare_stack(stacked, x.device)
+    ws = dict(zip(STACK_KEYS, stack))
     L = ws["wo"].shape[0]
     for k, shape in (("wqkv", (L, 3 * d, d)), ("wo", (L, d, d)),
                      ("w1", (L, 4 * d, d)), ("w2", (L, d, 4 * d)),
@@ -139,6 +158,8 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
             raise ValueError(f"{k} has shape {tuple(ws[k].shape)} on "
                              f"{ws[k].device}, expected {shape} on "
                              f"{x.device}")
+    ws = {k: t if t.is_contiguous() else t.contiguous()
+          for k, t in ws.items()}
     xin = x.to(bf16).contiguous()
     out = torch.empty_like(xin)
     m = b * n
@@ -158,6 +179,38 @@ def fused_token_transformer(x: torch.Tensor, stacked: dict,
     kernels.check("token_transformer", err)
     fused_token_transformer.launches += 1
     return out
+
+
+def _token_transformer_cpu(x, stack, num_heads):
+    return fused_token_transformer_reference(
+        x, dict(zip(STACK_KEYS, stack)), num_heads)
+
+
+token_transformer_op = torch.library.custom_op(
+    f"{kernels.OPS}::fused_token_transformer", _token_transformer_cpu,
+    mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor[] stack, int num_heads) -> Tensor")
+token_transformer_op.register_kernel("cuda", _token_transformer_cuda)
+
+
+@token_transformer_op.register_fake
+def _(x, stack, num_heads):
+    return x.new_empty(x.shape, dtype=torch.bfloat16)
+
+
+def fused_token_transformer(x: torch.Tensor, stacked: dict,
+                            num_heads: int = 8) -> torch.Tensor:
+    """(B, 128, d) tokens, pos-emb added -> (B, 128, d) bf16, ``ln_f`` not
+    applied, through the op ``mmidet::fused_token_transformer``.  On a
+    CUDA tensor this launches the kernel (one call; per layer 7 launches
+    on the current stream: two LayerNorms, the attention and the four
+    products on the TMA + wgmma GEMM); on a CPU tensor it runs the plain
+    version.  ``stacked``: ``stack_block_params``' dict, or what
+    ``prepare_stack`` made of it."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no token-transformer kernel for {x.device}")
+    ws = prepare_stack(stacked, x.device)
+    return token_transformer_op(x, [ws[k] for k in STACK_KEYS], num_heads)
 
 
 fused_token_transformer.launches = 0

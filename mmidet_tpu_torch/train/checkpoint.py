@@ -14,12 +14,20 @@ in ``opt_state``; the newest ``keep`` files stay (3 for
 ``cli/val.py`` reads the ``ema`` entry of such a file (``--weights
 <run>/ckpt_best/epoch<N>.pt``).  The JAX package's orbax checkpoints are
 its own format and are not read here.
+
+``load_torch_checkpoint`` reads what a user of the reference holds: its
+``.pt`` of pickled ``models.yolo.Model`` objects (``model`` and ``ema``,
+usually fp16 after ``strip_optimizer``), as well as state dicts and the
+port's own checkpoints (JAX ``train/checkpoint.py:212``).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import re
+import sys
+import types
 
 import torch
 
@@ -83,3 +91,51 @@ def strip_for_deploy(state) -> dict:
     """The EMA's state dict only (the reference's strip_optimizer: model
     <- ema, training state dropped)."""
     return {k: v.detach().clone() for k, v in state.ema.state_dict().items()}
+
+
+def _stub_reference_imports() -> None:
+    """Stand-ins for the reference's optional heavy imports (``thop``,
+    ``torchsummary``), which its modules import but a load never calls."""
+    for name in ("thop", "torchsummary"):
+        if name not in sys.modules:
+            stub = types.ModuleType(name)
+            stub.profile = lambda *a, **k: (0, 0)
+            stub.clever_format = lambda *a, **k: ("0", "0")
+            stub.summary = lambda *a, **k: None
+            sys.modules[name] = stub
+
+
+def load_torch_checkpoint(path: str, reference_repo: str | None = None,
+                          prefer_ema: bool = True) -> dict[str, torch.Tensor]:
+    """The state dict in a ``.pt``, by the reference's names.
+
+    A state dict or a ``{"model": .., "ema": ..}`` dict of them (the
+    port's checkpoints) loads with ``weights_only=True``.  Only when that
+    load refuses the file, because it pickles modules (the reference's
+    checkpoints hold ``models.yolo.Model`` objects), is it loaded again
+    with ``weights_only=False``: such a file is a pickle, and loading it
+    imports and runs code, the classes of the reference checkout, which
+    ``reference_repo`` puts on ``sys.path`` (with stand-ins for ``thop``
+    and ``torchsummary``).  Load only files you trust.  The ``ema`` entry
+    is taken over ``model`` unless ``prefer_ema`` is False; a module gives
+    ``.float().state_dict()``, so an fp16 checkpoint comes back in f32.
+    The port's module names are the reference's, so the result goes
+    straight into ``cli.val.load_weights``.  JAX
+    ``train/checkpoint.py:load_torch_checkpoint``."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # pickled modules: the reference's
+        if reference_repo and reference_repo not in sys.path:
+            sys.path.insert(0, reference_repo)
+        _stub_reference_imports()
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    model = ckpt
+    if isinstance(ckpt, dict):
+        model = ckpt["ema"] if prefer_ema and ckpt.get("ema") is not None \
+            else ckpt.get("model", ckpt)
+    sd = model.float().state_dict() if isinstance(model, torch.nn.Module) \
+        else model
+    if not isinstance(sd, dict) or not all(
+            isinstance(v, torch.Tensor) for v in sd.values()):
+        raise ValueError(f"{path} holds no state dict of tensors")
+    return dict(sd)

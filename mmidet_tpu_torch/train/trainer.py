@@ -102,7 +102,7 @@ class TrainConfig:
     #                          checkpoint over the whole forward, so it
     #                          saves no memory here, only costs time
     #                          (train/step.py)
-    weights: str = ""        # pretrained init: a .pt state dict (tolerant)
+    weights: str = ""        # pretrained init: a .pt or bundle (tolerant)
     image_weights: bool = False             # not ported (A15)
     single_cls: bool = False
     multi_scale: bool = False    # random /gs size in [0.5, 1.5]x a batch
@@ -353,8 +353,14 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         model = TwoStreamDetector(spec, aux_mode=aux_mode, use_cem=use_cem)
     if cfg.weights:  # pretrained init (ref --weights + intersect_dicts)
         from mmidet_tpu_torch.cli.val import load_state_dict_file
-        n_cp, n_tot = transfer_matching(model,
-                                        load_state_dict_file(cfg.weights))
+        # a reference checkpoint's pickle imports the reference checkout:
+        # MMIDET_REFERENCE_REPO, else ~/reference where it exists (JAX
+        # trainer.py:180-184)
+        ref = os.environ.get("MMIDET_REFERENCE_REPO",
+                             os.path.join(os.path.expanduser("~"),
+                                          "reference"))
+        n_cp, n_tot = transfer_matching(model, load_state_dict_file(
+            cfg.weights, reference_repo=ref if os.path.isdir(ref) else None))
         logger.info("transferred %d/%d items from %s", n_cp, n_tot,
                     cfg.weights)
     model = model.to(dev)

@@ -1357,3 +1357,186 @@ def test_yaml_model_on_the_card_matches_cpu(cuda, name):
     x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
     cs.condition(torch, model, x, None)
     _card_against_cpu(cuda, model, x, conf=cs.YAML_CONF)
+
+
+# ------------------------------------------- the kernels as torch.library ops
+
+# a stand-in for the reference checkout's ``models/yolo.py``: ``Model``
+# holds a state dict by the reference's names, as the pickled
+# ``models.yolo.Model`` of a reference checkpoint does
+STUB_YOLO = '''
+import torch
+from torch import nn
+
+
+class Model(nn.Module):
+    def __init__(self, sd):
+        super().__init__()
+        for key, value in sd.items():
+            *path, leaf = key.split(".")
+            mod = self
+            for name in path:
+                if name not in mod._modules:
+                    mod.add_module(name, nn.Module())
+                mod = mod._modules[name]
+            if value.is_floating_point() and "running" not in leaf:
+                mod.register_parameter(leaf, nn.Parameter(value.clone()))
+            else:
+                mod.register_buffer(leaf, value.clone())
+'''
+
+
+def write_reference_checkpoint(root, model_sd, ema_sd):
+    """A reference-format checkpoint under ``root``: a stub checkout
+    (``reference/models/yolo.py``) and ``best.pt``, pickled
+    ``models.yolo.Model`` objects in fp16 under ``model`` and ``ema``.
+    Returns (path, checkout); the checkout leaves ``sys.path`` and
+    ``sys.modules`` as it found them."""
+    import sys
+    repo = root / "reference"
+    (repo / "models").mkdir(parents=True)
+    (repo / "models" / "__init__.py").write_text("")
+    (repo / "models" / "yolo.py").write_text(STUB_YOLO)
+    saved = {n: sys.modules.pop(n) for n in list(sys.modules)
+             if n == "models" or n.startswith("models.")}
+    sys.path.insert(0, str(repo))
+    try:
+        from models.yolo import Model
+        path = str(root / "best.pt")
+        torch.save({"epoch": -1, "model": Model(model_sd).half(),
+                    "ema": Model(ema_sd).half(), "updates": 7}, path)
+    finally:
+        sys.path.remove(str(repo))
+        for name in ("models.yolo", "models"):
+            sys.modules.pop(name, None)
+        sys.modules.update(saved)
+    return path, str(repo)
+
+
+def _op_cases(gen, device):
+    """(op, args) of each custom op at small shapes: K1, K4 gated and not,
+    K3 in f32 with its weights and in bf16 with its pack."""
+    d = 16
+    ws = tc.prepare_stack(_stack(d, 2, gen, device), device)
+    stack = [ws[k] for k in tc.STACK_KEYS]
+    rgb, ir, _, pos, lns, lnb, _, gate = _merge_inputs(d, (9, 11), 2, 2, gen,
+                                                       device, True)
+    cem = _cem_params(gen, device)
+    x = torch.rand(2, 10, 12, 3, generator=gen).to(device)
+    return {"K1": (tc.token_transformer_op,
+                   (torch.randn(2, 128, d, generator=gen).to(
+                       device, torch.bfloat16), stack, 2)),
+            "K4_gated": (fusion_cuda.gpt_merge_op,
+                         (rgb, ir, stack, pos, lns, lnb, 2, gate["g1"],
+                          gate["g2"])),
+            "K4": (fusion_cuda.gpt_merge_op,
+                   (rgb, ir, stack, pos, lns, lnb, 2, None, None)),
+            "K3_f32": (cem_cuda.cem_op, (x, *cem, None)),
+            "K3_bf16": (cem_cuda.cem_op, (
+                x.bfloat16(), *cem,
+                cem_cuda.pack_cem_weights(*cem, torch.bfloat16)))}
+
+
+@pytest.mark.parametrize("case", ["K1", "K4_gated", "K4", "K3_f32",
+                                  "K3_bf16"])
+def test_opcheck_on_the_card(cuda, case):
+    """Schema, fake implementation (shape, dtype and strides against the
+    kernel's real output), autograd registration and AOT dispatch of each
+    custom op on CUDA tensors."""
+    op, args = _op_cases(torch.Generator().manual_seed(0), cuda)[case]
+    torch.library.opcheck(op, args)
+
+
+_DIRECT = {tc.token_transformer_op: tc._token_transformer_cuda,
+           fusion_cuda.gpt_merge_op: fusion_cuda._gpt_merge_cuda,
+           cem_cuda.cem_op: cem_cuda._fused_cem_cuda}
+
+
+@pytest.mark.parametrize("case", ["K1", "K4_gated", "K4", "K3_f32",
+                                  "K3_bf16"])
+def test_op_is_the_direct_launch(cuda, case):
+    """The op launches the kernel once, and gives what the direct ctypes
+    call gives, to the bit."""
+    op, args = _op_cases(torch.Generator().manual_seed(1), cuda)[case]
+    counter = {tc.token_transformer_op: tc.fused_token_transformer,
+               fusion_cuda.gpt_merge_op: fusion_cuda.fused_gpt_merge,
+               cem_cuda.cem_op: cem_cuda.fused_cem}[op]
+    before = counter.launches
+    got = op(*args)
+    want = _DIRECT[op](*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    for g, w in zip(*(t if isinstance(t, tuple) else (t,)
+                      for t in (got, want))):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _export_counts():
+    return (tc.fused_token_transformer.launches,
+            cem_cuda.fused_cem.launches,
+            fusion_cuda.fused_gpt_merge.launches)
+
+
+@pytest.mark.parametrize("name", ["gpt4", "fourier"])
+def test_exported_model_on_the_card_matches_eager(cuda, name):
+    """``export_program`` of a small BN-folded bf16 model on its kernel
+    routes, loaded back: the graph's custom ops launch their kernels (K1 at
+    each of the 4 levels; K3 once and K4 at each level), and ``pred`` is
+    the eager module's to the bit (the same kernels and ATen ops on the
+    same inputs)."""
+    from mmidet_tpu_torch.deploy.export import export_program, load_program
+    torch.manual_seed(0)
+    if name == "gpt4":
+        spec, flags, want = two_stream_spec("t", "gpt4", nc=2,
+                                            fusion_layers=2), {
+            "kernel_fusion": True}, (4, 0, 0)
+    else:
+        spec, flags, want = two_stream_spec("l", "fourier", nc=2,
+                                            fusion_layers=1), {
+            "kernel_cem": True, "kernel_merge": True}, (0, 1, 4)
+    model = fold_batchnorm(TwoStreamDetector(spec, **flags)).eval().to(
+        cuda, torch.bfloat16)
+    prog = load_program(export_program(model, 64, 2))
+    gen = torch.Generator().manual_seed(2)
+    rgb, ir = (torch.rand(2, 64, 64, 3, generator=gen).to(cuda)
+               for _ in range(2))
+    with torch.no_grad():
+        eager = model(rgb, ir)["pred"]
+        before = _export_counts()
+        got = prog(rgb, ir)
+        torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_export_counts(), before)) == want
+    assert got.dtype == eager.dtype and torch.equal(got, eager)
+
+
+def test_reference_checkpoint_loads_on_the_card(cuda, tmp_path):
+    """A reference-format ``.pt`` (pickled modules, fp16, ``model`` and
+    ``ema``) through ``cli.val.load_model_and_vars`` on the card: the EMA
+    is taken and every tensor of the model received."""
+    import sys
+
+    from mmidet_tpu_torch.cli import val
+    spec = two_stream_spec("t", "add", nc=2)
+    sds = []
+    for seed in (0, 1):
+        torch.manual_seed(seed)
+        sds.append(TwoStreamDetector(spec).state_dict())
+    path, repo = write_reference_checkpoint(tmp_path, *sds)
+    saved = {n: sys.modules.pop(n) for n in list(sys.modules)
+             if n == "models" or n.startswith("models.")}
+    sys.path.insert(0, repo)
+    try:
+        model, _ = val.load_model_and_vars("yolov5t_add", path, 2,
+                                           device=cuda)
+    finally:
+        sys.path.remove(repo)
+        for name in ("models.yolo", "models"):
+            sys.modules.pop(name, None)
+        sys.modules.update(saved)
+    ema = {k: v.half().float() if v.is_floating_point() else v
+           for k, v in sds[1].items()}
+    want = fold_batchnorm(val.build_model(spec, ema).eval()).to(
+        cuda, torch.bfloat16).state_dict()
+    got = model.state_dict()
+    assert list(got) == list(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)

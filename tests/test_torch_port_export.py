@@ -1,0 +1,435 @@
+"""The port's deploy export against the JAX package's: reference-format
+checkpoints in (``train.checkpoint.load_torch_checkpoint`` through every
+entry point that takes ``--weights``), portable graphs out (K1, K3 and K4
+as ``torch.library`` ops, ``export_program``/``load_program``, and the ONNX
+leg: ``onnx_proto``, ``onnx_export``, ``onnx_np``), on the CPU at "t"
+width, 64 px."""
+
+import dataclasses
+import os
+import pickle
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmidet_tpu.deploy import onnx_proto as jax_proto
+from mmidet_tpu.deploy.onnx_export import export_onnx as jax_export_onnx
+from mmidet_tpu.models.detector import TwoStreamDetector as JaxDetector
+from mmidet_tpu.models.zoo import single_stream_spec as jax_single
+from mmidet_tpu.models.zoo import two_stream_spec as jax_two
+from mmidet_tpu.train.checkpoint import convert_torch_state_dict
+from mmidet_tpu.train.checkpoint import \
+    load_torch_checkpoint as jax_load_checkpoint
+from mmidet_tpu_torch import hub
+from mmidet_tpu_torch.bridge import from_jax_variables
+from mmidet_tpu_torch.cli import val
+from mmidet_tpu_torch.deploy import export, onnx_np, onnx_proto, serve
+from mmidet_tpu_torch.deploy.onnx_export import export_onnx
+from mmidet_tpu_torch.models.detector import TwoStreamDetector
+from mmidet_tpu_torch.models.zoo import single_stream_spec, two_stream_spec
+from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda
+from mmidet_tpu_torch.nn import transformer_cuda as tc
+from mmidet_tpu_torch.nn.fuse import fold_batchnorm
+from mmidet_tpu_torch.train import checkpoint
+
+from test_torch_port_cuda import write_reference_checkpoint
+from test_torch_port_train import _seeded, _threads  # noqa: F401
+
+F32_TOL = dict(rtol=1e-4, atol=1e-4)  # the detector tests' f32 gate
+ONNX_TOL = 2e-3  # the JAX package's ONNX gate, relative to max(1, |ref|)
+IMG = 64
+
+
+def _shapes(jmodel, two: bool):
+    x = jnp.zeros((1, IMG, IMG, 3))
+    return jax.eval_shape(
+        lambda k: jmodel.init({"params": k}, x, x if two else None,
+                              train=False), jax.random.PRNGKey(0))
+
+
+def _rel_err(got, ref) -> float:
+    """Max error relative to max(1, |ref|): boxes are in pixels, scores in
+    [0, 1] (the JAX package's ONNX test)."""
+    assert got.shape == ref.shape
+    return float((np.abs(got - ref) / np.maximum(1.0, np.abs(ref))).max())
+
+
+def _images(n=2, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, (n, IMG, IMG, 3)).astype(np.float32),
+            rng.uniform(0, 1, (n, IMG, IMG, 3)).astype(np.float32))
+
+
+# --------------------------------------------------- reference checkpoints
+
+@pytest.fixture(scope="module")
+def ref_ckpt(tmp_path_factory):
+    """A reference-format checkpoint of yolov5t_add (nc 2): pickled stub
+    ``models.yolo.Model`` objects, fp16, ``model`` and an ``ema`` that
+    differs from it, written from a reference checkout made here."""
+    spec = two_stream_spec("t", "add", nc=2)
+    jmodel = JaxDetector(spec=jax_two("t", "add", nc=2), aux_mode="off")
+    shapes = _shapes(jmodel, True)
+    sds = []
+    for seed in (3, 4):  # model, then ema
+        m = TwoStreamDetector(spec)
+        from_jax_variables(m, jax.tree_util.tree_map(
+            np.asarray, _seeded(shapes, seed)))
+        sds.append(m.state_dict())
+    path, repo = write_reference_checkpoint(
+        tmp_path_factory.mktemp("refckpt"), *sds)
+    want = {k: v.half().float() if v.is_floating_point() else v
+            for k, v in sds[1].items()}
+    return {"path": path, "repo": repo, "spec": spec, "want": want,
+            "jmodel": jmodel, "shapes": shapes}
+
+
+@pytest.fixture
+def fresh_imports(monkeypatch):
+    """Each load imports the stub checkout anew: ``models`` is dropped
+    from ``sys.modules`` and ``sys.path`` restored after."""
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    for name in [n for n in sys.modules
+                 if n == "models" or n.startswith("models.")]:
+        monkeypatch.delitem(sys.modules, name)
+    yield
+    for name in ("models.yolo", "models"):
+        sys.modules.pop(name, None)
+
+
+def test_reference_checkpoint_matches_jax(ref_ckpt, fresh_imports):
+    """The port's loader against JAX's ``load_torch_checkpoint`` +
+    ``convert_torch_state_dict``: the same tensors (EMA, fp16 -> f32), and
+    the two forwards on them agree."""
+    path, repo = ref_ckpt["path"], ref_ckpt["repo"]
+    with pytest.raises(pickle.UnpicklingError):  # a pickle of modules
+        torch.load(path, weights_only=True)
+    sd = checkpoint.load_torch_checkpoint(path, reference_repo=repo)
+    want = ref_ckpt["want"]
+    assert list(sd) == list(want)
+    assert all(sd[k].dtype == want[k].dtype and torch.equal(sd[k], want[k])
+               for k in want)
+    model_sd = checkpoint.load_torch_checkpoint(path, reference_repo=repo,
+                                                prefer_ema=False)
+    assert not torch.equal(model_sd["model.0.conv.conv.weight"],
+                           sd["model.0.conv.conv.weight"])
+    jsd = jax_load_checkpoint(path, reference_repo=repo)
+    assert list(jsd) == list(sd)
+    assert all(np.array_equal(jsd[k], sd[k].numpy()) for k in sd)
+    template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                      dict(ref_ckpt["shapes"]))
+    v = convert_torch_state_dict(template, jsd, strict=True)
+    rgb, ir = _images()
+    jmodel = ref_ckpt["jmodel"]
+    want_pred = np.asarray(jax.jit(lambda v, a, b: jmodel.apply(
+        v, a, b, train=False)["pred"])(v, rgb, ir))
+    model = val.build_model(ref_ckpt["spec"], sd).eval()
+    with torch.no_grad():
+        got = model(torch.from_numpy(rgb), torch.from_numpy(ir))["pred"]
+    np.testing.assert_allclose(got.numpy(), want_pred, **F32_TOL)
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_reference_checkpoint_through_every_entry_point(
+        ref_ckpt, fresh_imports, tmp_path, monkeypatch):
+    """val (and detect, which loads through it), serve, the hub and the
+    export CLI read the file with no reference checkout named, as the JAX
+    package's val does, once its classes import; the trainer's
+    ``weights`` names the checkout by ``MMIDET_REFERENCE_REPO``."""
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    from mmidet_tpu_torch.train import trainer
+    path, repo, want = ref_ckpt["path"], ref_ckpt["repo"], ref_ckpt["want"]
+    # the trainer: the checkout named by the environment
+    got, real = [], trainer.transfer_matching
+
+    def transfer(m, loaded):
+        got.append((real(m, loaded), loaded))
+        raise _Stop
+    monkeypatch.setattr(trainer, "transfer_matching", transfer)
+    monkeypatch.setenv("MMIDET_REFERENCE_REPO", repo)
+    data = make_synthetic_pair_dataset(str(tmp_path / "d"), n=2, img=IMG)
+    cfg = trainer.TrainConfig(model="yolov5t_add", data=data, weights=path,
+                              epochs=1, batch_size=2, img_size=IMG,
+                              mosaic_prob=0.0, dtype="float32",
+                              workdir=str(tmp_path / "run"))
+    with pytest.raises(_Stop):
+        trainer.train(cfg, device="cpu")
+    (n_copied, n_total), loaded = got[0]
+    assert n_copied == n_total > 100
+    assert all(torch.equal(loaded[k], want[k]) for k in want)
+    assert repo in sys.path and "thop" in sys.modules
+    # the classes import now: val, serve, the hub and export need no repo
+    folded = fold_batchnorm(val.build_model(ref_ckpt["spec"], want).eval())
+    model, _ = val.load_model_and_vars("yolov5t_add", path, 2, device="cpu")
+    assert all(torch.equal(v, folded.state_dict()[k])
+               for k, v in model.state_dict().items())
+    chosen = []
+    monkeypatch.setattr(serve, "serve", lambda svc, *a: chosen.append(svc))
+    svc = serve.main(["--cfg", "yolov5t_add", "--nc", "2", "--weights",
+                      path, "--img-size", str(IMG), "--no-batching"],
+                     device="cpu")
+    assert chosen == [svc]
+    m = hub._make("yolov5t_add", 2, weights=path, img_size=IMG,
+                  device="cpu")
+    assert all(torch.equal(v, folded.state_dict()[k])
+               for k, v in m.model.state_dict().items())
+    out = str(tmp_path / "bundle")
+    assert export.main(["--cfg", "yolov5t_add", "--nc", "2", "--weights",
+                        path, "--img-size", str(IMG), "--out", out,
+                        "--onnx"], device="cpu") == out
+    assert sorted(os.listdir(out)) == ["model.json", "model.onnx", "model.pt",
+                                       "model.pt2"]
+    bundle_sd = val.load_state_dict_file(out)
+    assert all(torch.equal(bundle_sd[k], want[k]) for k in want)
+    rgb, ir = (torch.from_numpy(a[:1]) for a in _images())
+    graph = onnx_proto.Model.load(os.path.join(out, "model.onnx")).graph
+    with torch.no_grad():
+        ref = folded(rgb, ir)["pred"].numpy()
+    assert _rel_err(onnx_np.run(graph, {
+        "rgb": rgb.permute(0, 3, 1, 2).numpy(),
+        "ir": ir.permute(0, 3, 1, 2).numpy()})["pred"], ref) < ONNX_TOL
+    for leg in ("--savedmodel", "--tflite"):
+        with pytest.raises(NotImplementedError, match="jax2tf"):
+            export.main(["--cfg", "yolov5t_add", "--nc", "2", "--out",
+                         str(tmp_path / "graph"), leg], device="cpu")
+
+
+# ------------------------------------------------------------------ ONNX
+
+def test_onnx_codec_matches_jax():
+    """The port's encode of the JAX test's graph decodes to the same nodes,
+    attributes, shapes and initializers under both codecs, and back."""
+    def graph(mod):
+        w = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+        return mod.Graph(
+            "g", nodes=[mod.Node("Conv", ["x", "w"], ["y"], name="c",
+                                 attrs={"strides": [2, 2],
+                                        "pads": [1, 1, 1, 1], "group": 1,
+                                        "alpha": 0.1, "mode": "nearest",
+                                        "scales": [1.0, 2.0]}),
+                        mod.Node("Sigmoid", ["y"], ["z"], name="s")],
+            inputs=[mod.ValueInfo("x", mod.FLOAT, ("batch", 3, 8, 8))],
+            outputs=[mod.ValueInfo("z", mod.FLOAT, ("batch", 2, 4, 4))],
+            initializers=[mod.Tensor("w", w),
+                          mod.Tensor("i", np.asarray([-1, 0, 7], np.int64))])
+    buf = onnx_proto.Model(graph(onnx_proto), doc="rt").encode()
+    assert buf == jax_proto.Model(graph(jax_proto), doc="rt",
+                                  producer="mmidet_tpu_torch").encode()
+    for mod in (onnx_proto, jax_proto):
+        m = mod.Model.decode(buf)
+        assert m.opset == 17 and m.producer == "mmidet_tpu_torch"
+        g = m.graph
+        assert [(n.op_type, n.inputs, n.outputs, n.name) for n in g.nodes] \
+            == [("Conv", ["x", "w"], ["y"], "c"), ("Sigmoid", ["y"], ["z"],
+                                                   "s")]
+        a = g.nodes[0].attrs
+        assert a["strides"] == [2, 2] and a["pads"] == [1, 1, 1, 1]
+        assert a["group"] == 1 and a["mode"] == "nearest"
+        assert abs(a["alpha"] - 0.1) < 1e-7 and a["scales"] == [1.0, 2.0]
+        assert g.inputs[0].shape == ("batch", 3, 8, 8)
+        np.testing.assert_array_equal(g.initializers[1].array, [-1, 0, 7])
+        assert g.initializers[0].array.dtype == np.float32
+
+
+def _t_fourier(make):
+    """The fourier grammar at "t" width and JAX's ONNX test's depth 0.25:
+    GPT1_fourier's d_model, which the zoo does not scale (it builds the
+    grammar at l width), scaled here as the widths are."""
+    spec = make("t", "fourier", nc=2, fusion_layers=1)
+    layers = tuple(dataclasses.replace(
+        ld, args=(int(ld.args[0] * spec.width_multiple),) + ld.args[1:])
+        if ld.name == "GPT1_fourier" else ld for ld in spec.layers)
+    return dataclasses.replace(spec, layers=layers, depth_multiple=0.25)
+
+
+def _case(name):
+    """(JAX spec, port spec, two-stream) of an ONNX case."""
+    if name == "single":
+        return jax_single("t", nc=2), single_stream_spec("t", nc=2), False
+    if name == "fourier":
+        return _t_fourier(jax_two), _t_fourier(two_stream_spec), True
+    layers = {"add": {}, "gpt4": {"fusion_layers": 2}}[name]
+    return (jax_two("t", name, nc=2, **layers),
+            two_stream_spec("t", name, nc=2, **layers), True)
+
+
+@pytest.fixture(scope="module")
+def folded_cases():
+    """Per case: seeded variables of JAX's BN-folded model (``fused``:
+    what ``fold_batchnorm`` gives), and the port's fused f32 module with
+    them bridged onto it."""
+    out = {}
+    for i, name in enumerate(("add", "gpt4", "fourier", "single")):
+        jspec, pspec, two = _case(name)
+        jmodel = JaxDetector(spec=jspec, aux_mode="off", use_cem=two,
+                             fused=True)
+        folded = jax.tree_util.tree_map(np.asarray, _seeded(
+            _shapes(jmodel, two), 10 + i))
+        model = TwoStreamDetector(pspec, use_cem=two, fused=True)
+        from_jax_variables(model, folded)
+        out[name] = (jspec, pspec, two, folded, model.eval())
+    return out
+
+
+@pytest.mark.parametrize("name", ["add", "gpt4", "fourier", "single"])
+def test_onnx_graph_matches_jax(folded_cases, name, tmp_path):
+    """The same node sequence, op types, attributes, names, inputs and
+    outputs as JAX's emitter, initializers equal to the bit; the file run
+    by the port's numpy runner against the port's f32 forward."""
+    jspec, pspec, two, folded, model = folded_cases[name]
+    jax_export_onnx(jspec, folded, IMG, str(tmp_path / "j.onnx"),
+                    use_cem=two)
+    export_onnx(pspec, model, IMG, str(tmp_path / "p.onnx"), use_cem=two)
+    want = onnx_proto.Model.load(str(tmp_path / "j.onnx")).graph
+    got = onnx_proto.Model.load(str(tmp_path / "p.onnx")).graph
+    assert [(n.op_type, n.inputs, n.outputs, n.name, n.attrs)
+            for n in got.nodes] == [(n.op_type, n.inputs, n.outputs, n.name,
+                                     n.attrs) for n in want.nodes]
+    assert [(v.name, v.shape) for v in got.inputs + got.outputs] == \
+        [(v.name, v.shape) for v in want.inputs + want.outputs]
+    assert [t.name for t in got.initializers] == \
+        [t.name for t in want.initializers]
+    assert all(a.array.dtype == b.array.dtype
+               and np.array_equal(a.array, b.array)
+               for a, b in zip(got.initializers, want.initializers))
+    rgb, ir = _images()
+    feeds = {"rgb": rgb.transpose(0, 3, 1, 2),
+             "ir": ir.transpose(0, 3, 1, 2)} if two else \
+        {"images": rgb.transpose(0, 3, 1, 2)}
+    pred = onnx_np.run(got, feeds)["pred"]
+    with torch.no_grad():
+        ref = model(torch.from_numpy(rgb),
+                    torch.from_numpy(ir) if two else None)["pred"].numpy()
+    assert _rel_err(pred, ref) < ONNX_TOL
+
+
+def test_onnx_refuses_mamba(folded_cases, tmp_path):
+    """Both emitters refuse a MambaFusion row.  The mamba grammar is the
+    gpt4 one with MambaFusion at each level, so JAX's emitter reaches its
+    first MambaFusion row on the gpt4 case's variables."""
+    with pytest.raises(ValueError, match="MambaFusion"):
+        jax_export_onnx(jax_two("t", "mamba", nc=2), folded_cases["gpt4"][3],
+                        IMG, str(tmp_path / "j.onnx"))
+    model = fold_batchnorm(TwoStreamDetector(two_stream_spec("t", "mamba",
+                                                             nc=2)))
+    with pytest.raises(ValueError, match="MambaFusion"):
+        export_onnx(two_stream_spec("t", "mamba", nc=2), model, IMG,
+                    str(tmp_path / "p.onnx"))
+
+
+# ------------------------------------------------------ the ops, exported
+
+def _stack(d, L, gen):
+    def mat(o, i):
+        return torch.randn(L, o, i, generator=gen) / i ** 0.5
+
+    def vec(n, base=0.0):
+        return base + 0.2 * torch.randn(L, n, generator=gen)
+    return {"ln1_scale": vec(d, 1.0), "ln1_bias": vec(d), "wq": mat(d, d),
+            "wk": mat(d, d), "wv": mat(d, d), "bq": vec(d), "bk": vec(d),
+            "bv": vec(d), "wo": mat(d, d), "bo": vec(d),
+            "ln2_scale": vec(d, 1.0), "ln2_bias": vec(d),
+            "w1": mat(4 * d, d), "b1": vec(4 * d), "w2": mat(d, 4 * d),
+            "b2": vec(d)}
+
+
+def _cem_params(gen):
+    return (0.2 * torch.randn(3, 3, 3, 24, generator=gen),
+            0.1 * torch.randn(24, generator=gen),
+            torch.randn(24, generator=gen),
+            0.1 * torch.randn(24, generator=gen),
+            0.1 * torch.randn(3, 3, 24, 3, generator=gen),
+            0.1 * torch.randn(3, generator=gen))
+
+
+def op_cases(gen, device="cpu"):
+    """(op, args) for ``torch.library.opcheck``: K1, K4 gated and not, K3
+    in f32 with the weights and in bf16 with its pack."""
+    d = 16
+    ws = tc.prepare_stack(_stack(d, 2, gen), device)
+    stack = [ws[k] for k in tc.STACK_KEYS]
+    rgb, ir = (torch.rand(2, 9, 11, d, generator=gen).to(device)
+               for _ in range(2))
+    pos = (0.2 * torch.randn(1, 128, d, generator=gen)).to(device)
+    ln = (torch.ones(d, device=device), torch.zeros(d, device=device))
+    g1, g2 = (torch.randn(d, 8, generator=gen).to(device),
+              torch.randn(8, d, generator=gen).to(device))
+    cem = [t.to(device) for t in _cem_params(gen)]
+    x = torch.rand(2, 10, 12, 3, generator=gen).to(device)
+    return {"K1": (tc.token_transformer_op,
+                   (torch.randn(2, 128, d, generator=gen).to(device), stack,
+                    2)),
+            "K4_gated": (fusion_cuda.gpt_merge_op,
+                         (rgb, ir, stack, pos, *ln, 2, g1, g2)),
+            "K4": (fusion_cuda.gpt_merge_op,
+                   (rgb, ir, stack, pos, *ln, 2, None, None)),
+            "K3_f32": (cem_cuda.cem_op, (x, *cem, None)),
+            "K3_bf16": (cem_cuda.cem_op, (
+                x.bfloat16(), *cem,
+                cem_cuda.pack_cem_weights(*cem, torch.bfloat16)))}
+
+
+@pytest.mark.parametrize("case", ["K1", "K4_gated", "K4", "K3_f32",
+                                  "K3_bf16"])
+def test_opcheck_on_the_cpu(case):
+    """Schema, fake implementation (shapes, dtypes, strides), autograd
+    registration and AOT dispatch of each custom op; its CPU
+    implementation is the plain version, which the public wrapper gives."""
+    op, args = op_cases(torch.Generator().manual_seed(0))[case]
+    torch.library.opcheck(op, args)
+    assert op._qualname.startswith("mmidet::")
+
+
+def test_packing_traces_as_tensor_code():
+    """The kernel-ready weights (``pack_cem_weights``, ``prepare_stack``)
+    are plain tensor ops: ``torch.export`` traces them into a graph that
+    gives what the eager call gives."""
+    gen = torch.Generator().manual_seed(1)
+    cem = _cem_params(gen)
+    st = _stack(8, 2, gen)
+
+    class Pack(torch.nn.Module):
+        def forward(self, *ts):
+            ws = tc.prepare_stack(dict(zip(st, ts[6:])), ts[0].device)
+            return (cem_cuda.pack_cem_weights(*ts[:6], torch.bfloat16),
+                    *[ws[k] for k in tc.STACK_KEYS])
+    args = (*cem, *st.values())
+    ep = torch.export.export(Pack(), args)
+    for got, want in zip(ep.module()(*args), Pack()(*args)):
+        assert torch.equal(got, want)
+
+
+def _ops_in(prog) -> list[str]:
+    return [str(n.target) for n in prog.graph.nodes
+            if str(n.target).startswith("mmidet.")]
+
+
+@pytest.mark.parametrize("name", ["gpt4", "fourier"])
+def test_export_program_round_trip(folded_cases, name):
+    """``export_program``/``load_program`` of a BN-folded model on its
+    kernel routes: the graph holds the custom ops (K1 at every fusion
+    level; K3 once and K4 at every level) and no dropout, and the loaded
+    program's ``pred`` is the eager module's to the bit."""
+    _, pspec, _, _, model = folded_cases[name]
+    flags = {"kernel_fusion": True} if name == "gpt4" else {
+        "kernel_cem": True, "kernel_merge": True}
+    routed = TwoStreamDetector(pspec, fused=True, **flags).eval()
+    routed.load_state_dict(model.state_dict())
+    blob = export.export_program(routed, IMG, 2)
+    assert not routed.training
+    prog = export.load_program(blob)
+    want = ["mmidet.fused_token_transformer.default"] * 4 \
+        if name == "gpt4" else ["mmidet.fused_cem.default"] + \
+        ["mmidet.fused_gpt_merge.default"] * 4
+    assert _ops_in(prog) == want
+    assert not any("dropout" in str(n.target) for n in prog.graph.nodes)
+    rgb, ir = (torch.from_numpy(a) for a in _images(seed=5))
+    with torch.no_grad():
+        assert torch.equal(prog(rgb, ir), routed(rgb, ir)["pred"])

@@ -260,3 +260,48 @@ def test_serving_modules_are_covered_and_default_to_the_card():
             serve_bench.main([])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main([])
+
+
+def test_kernels_are_traceable_custom_ops():
+    """K1, K3 and K4 are ``torch.library`` ops in one namespace, with a CPU
+    implementation (the plain version), a CUDA one (the kernel) and a fake
+    one; the public wrappers call them.  K2 stays a plain wrapper: no
+    exported graph reaches it (the graph ends at ``pred``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ops = {"fused_token_transformer": transformer_cuda.token_transformer_op,
+           "fused_cem": cem_cuda.cem_op,
+           "fused_gpt_merge": fusion_cuda.gpt_merge_op}
+    for name, op in ops.items():
+        qual = f"{kernels.OPS}::{name}"
+        assert op._qualname == qual
+        assert getattr(torch.ops.mmidet, name).default is not None
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(qual, key)
+    assert not hasattr(torch.ops.mmidet, "nms_greedy")
+    # the fake implementation gives the kernel's output on (fake) CUDA
+    # tensors, where no card is needed
+    with FakeTensorMode():
+        x = torch.empty(2, 8, 8, 3, device="cuda")
+        w = [torch.empty(s, device="cuda") for s in (
+            (3, 3, 3, 24), (24,), (24,), (24,), (3, 3, 24, 3), (3,))]
+        y = cem_cuda.fused_cem(x, *w)
+        assert y.shape == x.shape and y.device.type == "cuda"
+
+
+def test_export_modules_are_covered_and_default_to_the_card():
+    """The export path's modules (the checkpoint reader, the ONNX codec,
+    emitter and runner) are among the files the import rule above reads,
+    and the export CLI runs on the card unless asked for the CPU."""
+    import inspect
+
+    from mmidet_tpu_torch.deploy import export
+    port = ROOT / "mmidet_tpu_torch"
+    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
+    assert {"deploy/export.py", "deploy/onnx_proto.py", "deploy/onnx_np.py",
+            "deploy/onnx_export.py", "train/checkpoint.py",
+            "nn/resize.py"} <= files
+    assert inspect.signature(export.main).parameters["device"].default == \
+        "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            export.main(["--cfg", "yolov5t_add"])
