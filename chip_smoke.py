@@ -152,10 +152,41 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  22. the ``kernels`` summary line, the card line, and the final
+  22. ``train_options_path`` (after ``remat``, on the eval path's data):
+     ``train`` on the flagship at 320, batch 8, mosaic, 2 epochs with
+     ``image_weights`` (the weights the trainer gave the loader against
+     ``labels_to_image_weights`` on the first evaluation's maps, the second
+     epoch's base images against ``default_rng(seed + 1).choice``),
+     ``bbox_interval=1`` (the media JPEGs), ``use_wandb`` with wandb held
+     absent (the run goes on), ``log_artifacts`` and ``upload_dataset``
+     into a store under ``EVAL_DATA`` (versions and aliases),
+     ``bucket`` through a recording ``gsutil`` stub (``results.txt``
+     after each evaluation), ``nosave`` (a 2.5 GB checkpoint a run: a
+     call's disk writes are capped); then the run resumed from
+     ``wandb-artifact://`` for its third epoch; every evaluation checked
+     and counted as ``train_path``'s; seconds an epoch and the loader's
+     wait share;
+  23. ``evolve_path``: ``cli.train.main(... --evolve 2 --epochs 1)`` on the
+     flagship at 320 on the first 16 pairs: each generation's hyp against
+     ``mutate`` replayed from seed 0 and within ``META``'s bounds, each
+     evaluation checked and counted; seconds a generation;
+  24. ``sources_path``: cv2 writes an RGB and an IR MJPG ``.avi`` of 8
+     frames at 640x512, PIL 4 JPEG pairs; two ``LoadImages`` in lockstep
+     and a ``LoadStreams`` over the two videos feed the flagship from
+     ``cli.val.load_model_and_vars`` (conditioned) at batch 1, forward +
+     NMS (K3 1, K4 4, K2's small form 1 a frame), every call checked, then
+     timed (frames/s); ``feature_heatmap`` at ``l6`` and at a fusion row
+     against the plain versions on the card (``K4_EVAL_TOL``);
+     ``model_cost`` at 640 on the kernel and the plain route (equal
+     ``gflops``); ``bench_fn`` beside ``time_ms``; a ``trace`` whose
+     Chrome trace names K3's and K4's kernels;
+  25. ``aux_experimental_gate``: ``nn/aux_experimental.py``'s modules and
+     losses at 64 px in f32, TF32 off, card against CPU (``AUX_TOL``);
+  26. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-21) runs with every launch count set to 0 just before it and
-read just after; a kernel of the path that did not launch fails the run.
+Every path (8-21, 22-24) runs with every launch count set to 0 just before
+it and read just after; a kernel of the path that did not launch fails the
+run.  Phases 22-25 run after ``remat`` (step 12), before ``serve_path``.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
 call behind a spin kernel so that only the card's time counts.
@@ -3264,6 +3295,502 @@ def phase_remat(torch, dev, card: str):
     return rec
 
 
+# ----------------------------------------------------------------------
+# the trainer's remaining options, evolution, inference sources, the
+# utils leftovers and the experimental aux modules
+OPTIONS_BUCKET = "chip-smoke-bucket"
+
+
+def gsutil_stub(where: Path):
+    """A ``gsutil`` that records its arguments (one line a call) and
+    succeeds, for the first place on ``PATH``: (its dir, its log)."""
+    import stat
+    where.mkdir(parents=True, exist_ok=True)
+    log = where / "gsutil.log"
+    exe = where / "gsutil"
+    exe.write_text(f"#!{sys.executable}\nimport sys\n"
+                   f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) "
+                   f"+ '\\n')\n")
+    exe.chmod(exe.stat().st_mode | stat.S_IEXEC)
+    return where, log
+
+
+@contextlib.contextmanager
+def wandb_absent():
+    """``import wandb`` fails inside (the W&B leg must not reach the
+    network); ``sys.modules`` keeps every other module imported meanwhile
+    (``mock.patch.dict`` would drop them, and a module imported again
+    registers its torch library ops twice)."""
+    missing = object()
+    before = sys.modules.get("wandb", missing)
+    sys.modules["wandb"] = None
+    try:
+        yield
+    finally:
+        if before is missing:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = before
+
+
+def phase_train_options_path(torch, dev, card: str):
+    """``train`` on the flagship at 320 px, batch 8, mosaic, 2 epochs on
+    the eval path's 64 square pairs with ``image_weights``,
+    ``bbox_interval=1``, ``use_wandb`` (wandb held absent: the run goes
+    on), ``log_artifacts`` and ``upload_dataset`` into a store under
+    ``EVAL_DATA``, ``bucket`` through a recording ``gsutil`` stub and
+    ``nosave`` (one checkpoint a run, the last epoch's); then the run
+    resumed from ``wandb-artifact://`` for one more epoch.  Each
+    evaluation checked and counted (``checked_eval``)."""
+    import os
+    from unittest import mock
+
+    import numpy as np
+
+    from mmidet_tpu_torch.data.loader import MosaicLoader
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+    from mmidet_tpu_torch.utils import artifacts
+    from mmidet_tpu_torch.utils.general import (labels_to_class_weights,
+                                                labels_to_image_weights)
+    t_phase = time.perf_counter()
+    store = EVAL_DATA / "options_store"
+    stub_dir, stub_log = gsutil_stub(EVAL_DATA / "options_bin")
+    given, drawn, evals, results, waits, legs, loaders = ([] for _ in
+                                                          range(7))
+
+    class Loader(wait_timed(MosaicLoader, waits, legs)):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loaders.append(self)
+
+        def set_image_weights(self, weights):
+            given.append(np.array(weights))
+            super().set_image_weights(weights)
+
+        def _indices(self, rng):
+            drawn.append(super()._indices(rng))
+            return drawn[-1]
+
+    counted = checked_eval(torch, "train_options_path", trainer_mod.evaluate,
+                           evals)
+
+    def evaluate(*a, **kw):
+        results.append(counted(*a, **kw))
+        return results[-1]
+
+    # nosave: a checkpoint only at a run's last epoch; the flagship's is
+    # 2.5 GB, and all that a call writes to its machine's disk counts
+    # against a 45 GiB limit, deleted files too
+    options = dict(img_size=320, mosaic_prob=1.0, image_weights=True,
+                   bbox_interval=1, use_wandb=True, log_artifacts=True,
+                   bucket=OPTIONS_BUCKET, nosave=True)
+    env = {"MMIDET_ARTIFACT_ROOT": str(store),
+           "PATH": f"{stub_dir}{os.pathsep}{os.environ.get('PATH', '')}"}
+    runs = []
+    with mock.patch.dict(os.environ, env), \
+            wandb_absent(), \
+            mock.patch.object(trainer_mod, "evaluate", evaluate), \
+            mock.patch.object(trainer_mod, "MosaicLoader", Loader):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = trainer_mod.train(train_path_config(
+            EVAL_DATA / "options_run", 2, upload_dataset=True, **options),
+            device=dev)
+        runs.append(time.perf_counter() - t0)
+        run_id = os.path.basename(out["workdir"])
+        backend = artifacts.LocalBackend(root=str(store))
+        art = backend.download(f"run_{run_id}_model:latest")
+        meta = backend.metadata(f"run_{run_id}_model:latest")
+        # an interrupted 3-epoch run leaves this artifact: the checkpoint
+        # of epoch 1 with total_epochs 3 (v1 beside the run's own v0)
+        artifacts.log_model_artifact(
+            backend, run_id, os.path.join(art, "ckpt"), epoch=1,
+            total_epochs=3, fitness=meta["fitness_score"],
+            opt={**meta["opt"], "epochs": 3})
+        t0 = time.perf_counter()
+        resumed = trainer_mod.train(train_path_config(
+            EVAL_DATA / "options_resumed", 2,
+            resume=f"wandb-artifact://mmidet_tpu/{run_id}", **options),
+            device=dev)
+        runs.append(time.perf_counter() - t0)
+    after = read_counts()
+    if any(after.values()):
+        raise AssertionError(f"train_options_path: kernels launched after "
+                             f"the last evaluation: {after}")
+
+    # the weights the trainer gave the loader after the first evaluation
+    labels, nc = loaders[0].ds.labels, 2
+    res = results[0]
+    maps = np.full(nc, res.map)
+    for i, name in enumerate(("box", "blob")):
+        maps[i] = res.per_class.get(name, {}).get("ap", res.map)
+    want_w = labels_to_image_weights(
+        labels, nc, labels_to_class_weights(labels, nc) * (1 - maps) ** 2)
+    n, seed = len(labels), train_path_config(EVAL_DATA).seed
+    weights_ok = len(given) == 1 and np.array_equal(given[0], want_w)
+    draw_ok = weights_ok and len(drawn) >= 2 and np.array_equal(
+        drawn[1], np.random.default_rng(seed + 1).choice(
+            n, n, p=given[0] / given[0].sum()))
+    wd = Path(out["workdir"])
+    media = {e: len(list((wd / "media" / f"epoch{e}").glob("*.jpg")))
+             for e in (0, 1)}
+    aliases = json.loads((store / "mmidet_tpu" / f"run_{run_id}_model" /
+                          "aliases.json").read_text())
+    datasets = sorted(p.name for p in (store / "mmidet_tpu").iterdir()
+                      if not p.name.startswith("run_"))
+    uploads = stub_log.read_text().splitlines()
+    epochs = out["epochs"] + resumed["epochs"]
+    seconds = [e["seconds"] for e in epochs]
+    rec = {"phase": "train_options_path", "card": card,
+           "model": "yolov5l_fuse3_fourier", "img": 320, "batch": 8,
+           "dtype": "bfloat16", "mosaic": True, "loader_leg": legs,
+           "wandb": "absent: the logger's W&B leg is None, the run went on",
+           "epoch_seconds": seconds,
+           "loader_wait_share": [w / s for w, s in zip(waits, seconds)],
+           "run_seconds": runs, "maps_first_eval": maps.tolist(),
+           "image_weights": given[0].tolist() if given else None,
+           "image_weights_ok": weights_ok, "epoch1_draw_ok": draw_ok,
+           "epoch1_distinct_images": len(set(drawn[1].tolist()))
+           if len(drawn) > 1 else None,
+           "media_jpgs": media, "model_aliases": aliases,
+           "model_versions": sorted(p.name for p in (
+               store / "mmidet_tpu" / f"run_{run_id}_model").glob("v*")),
+           "model_artifact": meta, "dataset_artifacts": datasets,
+           "gsutil_calls": uploads,
+           "resumed_epochs": [e["epoch"] for e in resumed["epochs"]],
+           "evals": evals, "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    results_txt = str(wd / "results.txt")
+    if not (weights_ok and draw_ok and min(media.values()) > 0 and
+            {"latest", "epoch 2"} <= set(aliases) and
+            rec["model_versions"] == ["v0", "v1"] and
+            meta["epochs_trained"] == 2 and
+            datasets == ["train_ir", "train_rgb", "val_ir", "val_rgb"] and
+            uploads[:2] == [f"cp {results_txt} gs://{OPTIONS_BUCKET}/"] * 2
+            and rec["resumed_epochs"] == [2] and len(evals) == 3 and
+            all(math.isfinite(e[k]) for e in epochs
+                for k in ("box", "obj", "cls"))):
+        raise AssertionError(f"train_options_path: {rec}")
+    return rec
+
+
+def evolve_data(n: int = 16) -> str:
+    """A dataset YAML of the eval set's first ``n`` square pairs (hard
+    links), as train and val set."""
+    import os
+
+    import yaml
+    src, dst = EVAL_DATA / "square", EVAL_DATA / f"first{n}"
+    for mod in ("val_rgb", "val_ir"):
+        imgs = sorted((src / mod / "images").glob("*.png"))[:n]
+        for sub, files in (("images", imgs), ("labels", [
+                src / mod / "labels" / (p.stem + ".txt") for p in imgs])):
+            (dst / mod / sub).mkdir(parents=True, exist_ok=True)
+            for f in files:
+                if f.exists():
+                    os.link(f, dst / mod / sub / f.name)
+    rgb, ir = (str(dst / m / "images") for m in ("val_rgb", "val_ir"))
+    path = dst / "data.yaml"
+    path.write_text(yaml.safe_dump({
+        "train_rgb": rgb, "train_ir": ir, "val_rgb": rgb, "val_ir": ir,
+        "nc": 2, "names": ["box", "blob"]}))
+    return str(path)
+
+
+def phase_evolve_path(torch, dev, card: str):
+    """``cli.train.main(... --evolve 2 --epochs 1)`` on the flagship at
+    320 px, batch 8, mosaic, on the first 16 pairs, ``--nbs 8`` (each of
+    the 2 micro-steps an optimizer step, so that a generation's hyp moves
+    its weights and its fitness), ``--nosave`` (one checkpoint a
+    generation, see ``train_options_path``): two generations, each
+    hyp what ``mutate`` gives for seed 0 and the history before it and
+    within ``META``'s bounds, each generation's evaluation checked and
+    counted (``checked_eval``)."""
+    from unittest import mock
+
+    import numpy as np
+
+    from mmidet_tpu_torch.cli import train as train_cli
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+    from mmidet_tpu_torch.train.evolve import META, mutate
+    t_phase = time.perf_counter()
+    data = evolve_data()
+    evals, gen_seconds = [], []
+    counted = checked_eval(torch, "evolve_path", trainer_mod.evaluate, evals)
+    real_train = train_cli.train
+
+    def timed_train(cfg, device):
+        t0 = time.perf_counter()
+        out = real_train(cfg, device=device)
+        gen_seconds.append(time.perf_counter() - t0)
+        return out
+    project = EVAL_DATA / "evolve_runs"
+    buf = io.StringIO()
+    zero_counts()
+    with mock.patch.object(trainer_mod, "evaluate", counted), \
+            mock.patch.object(train_cli, "train", timed_train), \
+            contextlib.redirect_stdout(buf):
+        out = train_cli.main(
+            ["--cfg", "yolov5l_fuse3_fourier", "--data", data, "--epochs",
+             "1", "--batch-size", "8", "--img-size", "320", "--nbs", "8",
+             "--nosave", "--project", str(project), "--name", "exp",
+             "--evolve", "2"], device=dev)
+    after = read_counts()
+    rows = [json.loads(line) for line in
+            (project / "exp_evolve" / "evolve.txt").read_text().splitlines()]
+    rng, history, replay_ok, bounds_ok = np.random.default_rng(0), [], [], []
+    base = trainer_mod.load_hyp("")
+    for r in rows:
+        replay_ok.append(r["hyp"] == mutate(base, history, rng))
+        bounds_ok.append(all(lo <= r["hyp"][k] <= hi
+                             for k, (_, lo, hi) in META.items()))
+        history.append((r["fitness"], r["hyp"]))
+    rec = {"phase": "evolve_path", "card": card,
+           "model": "yolov5l_fuse3_fourier", "img": 320, "batch": 8,
+           "pairs": 16, "generations": len(rows),
+           "generation_seconds": gen_seconds,
+           "fitness": [r["fitness"] for r in rows],
+           "hyp_lr0": [r["hyp"]["lr0"] for r in rows],
+           "replay_equal": replay_ok, "within_bounds": bounds_ok,
+           "best_fitness": out["best_fitness"], "evals": evals,
+           "stdout_tail": buf.getvalue().strip().splitlines()[-1:],
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if len(rows) != 2 or not all(replay_ok) or not all(bounds_ok) or \
+            len(evals) != 2 or any(after.values()):
+        raise AssertionError(f"evolve_path: {rec}, launches after the last "
+                             f"evaluation {after}")
+    return rec
+
+
+SOURCE_FRAMES = 8               # frames a video, 640x512, MJPG
+SOURCE_STILLS = 4               # JPEG pairs beside the videos
+STREAM_FRAMES = 4               # LoadStreams iterations
+
+
+def write_sources(root: Path) -> None:
+    """An RGB and an IR dir, each with ``SOURCE_STILLS`` JPEGs and one
+    MJPG ``clip.avi`` of ``SOURCE_FRAMES`` frames, all 640x512, from the
+    eval path's 640x512 pairs."""
+    import cv2
+    import numpy as np
+    from PIL import Image
+    for mod in ("rgb", "ir"):
+        (root / mod).mkdir(parents=True)
+        frames = sorted((EVAL_DATA / "rect" / f"val_{mod}" /
+                         "images").glob("*.png"))
+        writer = cv2.VideoWriter(str(root / mod / "clip.avi"),
+                                 cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                                 (640, 512))
+        if not writer.isOpened():
+            raise RuntimeError("cv2 cannot write an MJPG .avi here")
+        for f in frames[:SOURCE_FRAMES]:
+            writer.write(np.asarray(Image.open(f).convert("RGB"))[:, :, ::-1])
+        writer.release()
+        for i, f in enumerate(frames[SOURCE_FRAMES:SOURCE_FRAMES +
+                                     SOURCE_STILLS]):
+            Image.open(f).convert("RGB").save(root / mod / f"p{i}.jpg",
+                                              quality=95)
+
+
+def phase_sources_path(torch, dev, card: str):
+    """Inference sources through the flagship (``cli.val``'s deploy form,
+    conditioned): two ``LoadImages`` in lockstep over stills and videos
+    and a ``LoadStreams`` over the two videos, forward + NMS at batch 1
+    (K3 1, K4 4, K2 1 a frame), every call checked; then timed; then
+    ``feature_heatmap`` at ``l6`` and at a fusion row, kernel route
+    against the plain versions; ``model_cost`` at 640 on both routes;
+    ``bench_fn`` beside ``time_ms``; a ``trace`` of a forward."""
+    import numpy as np
+
+    from mmidet_tpu_torch.cli import val as val_cli
+    from mmidet_tpu_torch.data.sources import LoadImages, LoadStreams
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+    from mmidet_tpu_torch.tools.timing import time_ms
+    from mmidet_tpu_torch.utils.gradcam import capture_names, feature_heatmap
+    from mmidet_tpu_torch.utils.profiler import bench_fn, model_cost, trace
+    t_phase = time.perf_counter()
+    root = EVAL_DATA / "sources"
+    write_sources(root)
+    model, _ = val_cli.load_model_and_vars("yolov5l_fuse3_fourier", "", 2,
+                                           device=dev)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).float() \
+            / 255.0
+
+    def pairs():
+        return zip(LoadImages(str(root / "rgb"), 640),
+                   LoadImages(str(root / "ir"), 640))
+    stills = [(tensor(a[1][None]), tensor(b[1][None]))
+              for a, b in list(pairs())[:SOURCE_STILLS]]
+    condition(torch, model, torch.cat([s[0] for s in stills]),
+              torch.cat([s[1] for s in stills]))
+
+    def detect(rgb, ir):
+        with torch.inference_mode():
+            pred = model(rgb, ir)["pred"]
+            return non_max_suppression(pred, 0.001, 0.6)
+
+    # untimed: every call checked, on both sources
+    checks, k2_paths, frames = [], [], {"images": 0, "streams": 0}
+    zero_counts()
+    with checked_kernels(torch, checks, k2_paths):
+        for (pa, a, *_), (pb, b, *_) in pairs():
+            if Path(pa).name != Path(pb).name:
+                raise AssertionError(f"sources_path: {pa} beside {pb}")
+            detect(tensor(a[None]), tensor(b[None]))
+            frames["images"] += 1
+        n_img = frames["images"]
+        image_counts = read_counts(fused_cem=n_img, fused_gpt_merge=4 * n_img,
+                                   nms_greedy=n_img)
+        zero_counts()
+        streams = LoadStreams([str(root / "rgb" / "clip.avi"),
+                               str(root / "ir" / "clip.avi")], 640)
+        try:
+            for _, lbs, _, _ in streams:
+                detect(tensor(lbs[:1]), tensor(lbs[1:]))
+                frames["streams"] += 1
+                if frames["streams"] == STREAM_FRAMES:
+                    break
+        finally:
+            streams.close()
+        stream_counts = read_counts(fused_cem=STREAM_FRAMES,
+                                    fused_gpt_merge=4 * STREAM_FRAMES,
+                                    nms_greedy=STREAM_FRAMES)
+    checked = check_summary(checks)
+    n_all = n_img + STREAM_FRAMES
+    calls = {k: v["calls"] for k, v in checked.items()}
+    # timed: decode, letterbox, copy, forward and NMS, as a user runs it
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for (_, a, *_), (_, b, *_) in pairs():
+        dets, valid = detect(tensor(a[None]), tensor(b[None]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    timed_counts = read_counts(fused_cem=n_img, fused_gpt_merge=4 * n_img,
+                               nms_greedy=n_img)
+
+    # feature heatmaps: kernel route against the plain versions
+    rgb, ir = stills[0]
+    fusion_row = next(k for k in sorted(capture_names(model)) if "GPT" in k)
+    heat = {}
+    for layer in ("l6", fusion_row):
+        zero_counts()
+        got = feature_heatmap(model, rgb, ir, layer)
+        counts = read_counts(fused_cem=1, fused_gpt_merge=4)
+        with plain_versions(torch):
+            want = feature_heatmap(model, rgb, ir, layer)
+        heat[layer] = {"shape": list(got.shape), "launches": counts,
+                       "max_abs_err": float(np.abs(got - want).max()),
+                       "tol": K4_EVAL_TOL}
+    # the model's cost at 640 on both routes, and its forward's time
+    zero_counts()
+    cost = model_cost(model, rgb, ir)
+    cost_launches = read_counts(fused_cem=1, fused_gpt_merge=4)
+    with plain_versions(torch):
+        plain_cost = model_cost(model, rgb, ir)
+
+    def forward():
+        with torch.inference_mode():
+            model(rgb, ir)
+    bench_s = bench_fn(forward, iters=10)
+    ev_ms = time_ms(forward, reps=10)
+    trace_dir = EVAL_DATA / "sources_trace"
+    with trace(str(trace_dir)):
+        forward()
+    names = {e.get("name", "") for e in json.loads(
+        (trace_dir / "trace.json").read_text())["traceEvents"]}
+    traced = {k: sorted(n for n in names if k in n)[:3]
+              for k in ("cem_kernel", "merge_kernel")}
+    rec = {"phase": "sources_path", "card": card,
+           "model": "yolov5l_fuse3_fourier", "dtype": "bfloat16", "batch": 1,
+           "img": 640, "frames": frames, "checked": checked,
+           "k2_paths": {p: k2_paths.count(p) for p in sorted(set(k2_paths))},
+           "launches_images": image_counts, "launches_streams": stream_counts,
+           "launches_timed": timed_counts, "timed_frames": n_img,
+           "timed_seconds": secs, "frames_per_s": n_img / secs,
+           "last_frame_boxes": int(valid.sum()), "heatmaps": heat,
+           "model_cost": cost, "model_cost_plain": plain_cost,
+           "model_cost_launches": cost_launches,
+           "bench_fn_ms": bench_s * 1e3, "time_ms": ev_ms,
+           "trace_kernels": traced,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if not all(v["ok"] for v in checked.values()) or calls != {
+            "fused_cem": n_all, "fused_gpt_merge": 4 * n_all,
+            "nms_greedy": n_all} or \
+            n_img != SOURCE_STILLS + SOURCE_FRAMES or \
+            any(h["max_abs_err"] > h["tol"] for h in heat.values()) or \
+            cost["gflops"] != plain_cost["gflops"] or \
+            cost["gflops"] <= 0 or not all(traced.values()):
+        raise AssertionError(f"sources_path: {rec}")
+    return rec
+
+
+# the aux modules in f32 with TF32 off, card against CPU: convolutions and
+# products sum in another order (cuDNN's algorithms), nothing compounds
+# through more than five layers: 1e-5 of max |CPU value| (the losses: of
+# their value)
+AUX_TOL = 1e-5
+
+
+def phase_aux_experimental_gate(torch, dev, card: str):
+    """``nn/aux_experimental.py`` at 64 px in f32: the VAE (one noise
+    tensor for both), both feature extractors in eval and train mode (the
+    BN buffers after), the decoder and the losses, card against CPU."""
+    import copy
+
+    from mmidet_tpu_torch.nn import aux_experimental as aux
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(2, 3, 64, 64, generator=gen)
+    feats = torch.randn(2, 8, 16, 16, generator=gen)
+    eps = torch.randn(2, 16, generator=gen)
+    torch.manual_seed(0)
+    mods = {"vae": aux.VAE(3, 16, (64, 64)),
+            "specific": aux.ModalitySpecificFeatureExtractor(3),
+            "agnostic": aux.ModalityAgnosticFeatureExtractor(3),
+            "decoder": aux.DecoderNetwork(8, 8)}
+
+    def run(device):
+        out = {}
+        for name, m in mods.items():
+            m = copy.deepcopy(m).to(device)
+            if name == "vae":
+                recon, mu, logvar = m.eval()(x.to(device), eps=eps.to(device))
+                out.update(vae_recon=recon, vae_mu=mu, vae_logvar=logvar,
+                           vae_loss=aux.vae_loss(recon, x.to(device), mu,
+                                                 logvar))
+            elif name == "decoder":
+                out[name] = m(feats.to(device))
+            else:
+                out[f"{name}_eval"] = m.eval()(x.to(device))
+                out[f"{name}_train"] = m.train()(x.to(device))
+                out[f"{name}_running_var"] = m.BatchNorm_0.running_var
+        a, p = out["specific_eval"].flatten(1), out["specific_train"].flatten(1)
+        out["rec_contrastive_loss"] = aux.rec_contrastive_loss(a, p)
+        out["reconstruction_loss"] = aux.reconstruction_loss(
+            out["vae_recon"], x.to(device))
+        return {k: v.detach().float().cpu() for k, v in out.items()}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want, got = run("cpu"), run(dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    errs = {k: float((got[k] - w).abs().max()) /
+            max(float(w.abs().max()), 1e-12) for k, w in want.items()}
+    rec = {"phase": "aux_experimental_gate", "card": card, "img": 64,
+           "dtype": "float32", "max_rel_err": errs, "tol": AUX_TOL,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if any(not math.isfinite(e) or e > AUX_TOL for e in errs.values()):
+        raise AssertionError(f"aux_experimental_gate: {rec}")
+    return rec
+
+
 def summed(recs, key):
     return sum(r[key] for r in recs)
 
@@ -3336,6 +3863,10 @@ def main() -> int:
                                     mosaic_prob=1.0)
     train_flags = phase_train_flags_path(torch, dev, name)
     phase_remat(torch, dev, name)
+    options = phase_train_options_path(torch, dev, name)
+    evolved = phase_evolve_path(torch, dev, name)
+    sources = phase_sources_path(torch, dev, name)
+    phase_aux_experimental_gate(torch, dev, name)
     shutil.rmtree(EVAL_DATA, ignore_errors=True)
     model, pairs, payloads, serving = phase_serve_path(torch, dev, name)
     int8 = phase_int8_path(torch, dev, name, model, pairs, payloads)
@@ -3371,6 +3902,13 @@ def main() -> int:
          "train_flags_eval_launches": sum(
              e["launches"]["fused_token_transformer"]
              for r in train_flags for e in r["evals"]),
+         # the evaluations of train_options_path (3) and evolve_path (2)
+         "train_options_eval_launches": sum(
+             e["launches"]["fused_token_transformer"]
+             for e in options["evals"]),
+         "evolve_eval_launches": sum(
+             e["launches"]["fused_token_transformer"]
+             for e in evolved["evals"]),
          # hub.yolov5s_gpt4 on 4 images: 4 a forward, 3 forwards with TTA
          "hub_launches": {k: r["launches"]["fused_token_transformer"]
                           for k, r in hub_rec["runs"].items()},
@@ -3397,6 +3935,8 @@ def main() -> int:
          "mamba_launches": mamba["nms_greedy"],
          "yaml_launches": {r["model"]: r["launches_per_forward"]["nms_greedy"]
                            for r in yaml_recs},
+         # one a frame of sources_path's timed LoadImages pass
+         "sources_launches": sources["launches_timed"]["nms_greedy"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
@@ -3410,6 +3950,7 @@ def main() -> int:
                           for k, r in hub_rec["runs"].items()},
          # the exported flagship program, loaded back: 1 a call
          "export_launches": exported["flagship"]["launches"]["fused_cem"],
+         "sources_launches": sources["launches_timed"]["fused_cem"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
@@ -3423,6 +3964,7 @@ def main() -> int:
          # the exported flagship program, loaded back: 4 a call
          "export_launches": exported["flagship"]["launches"][
              "fused_gpt_merge"],
+         "sources_launches": sources["launches_timed"]["fused_gpt_merge"],
          "max_abs_err": max(r["max_abs_err"] for r in k4),
          "ms": summed(k4, "ms"), "plain_ms": summed(k4, "plain_ms"),
          "bound_ms": summed(k4, "bound_ms"),
@@ -3443,6 +3985,10 @@ def main() -> int:
          "train_flags_eval_launches": sum(
              e["launches"]["nms_greedy_large"]
              for r in train_flags for e in r["evals"]),
+         "train_options_eval_launches": sum(
+             e["launches"]["nms_greedy_large"] for e in options["evals"]),
+         "evolve_eval_launches": sum(
+             e["launches"]["nms_greedy_large"] for e in evolved["evals"]),
          "max_abs_err": k2_large["max_abs_err"], "ms": k2_large["ms"],
          "plain_ms": k2_large["plain_ms"], "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"], "library_ms": None},

@@ -35,6 +35,9 @@ checkpoint converter computes (``mmidet_tpu/train/checkpoint.py:84-169``,
 
 Every leaf must land on exactly one key of matching shape, and every key
 (but BN's ``num_batches_tracked``) must receive one; anything else raises.
+
+``from_flax_aux`` does the same for the modules of
+``nn/aux_experimental.py``, whose port carries the flax scope names.
 """
 
 from __future__ import annotations
@@ -184,3 +187,53 @@ def from_jax_variables(model: torch.nn.Module, variables: dict) -> dict:
         raise KeyError(f"{len(left)} port keys received no variable, e.g. "
                        f"{left[:5]}")
     return used
+
+
+@torch.no_grad()
+def from_flax_aux(module: torch.nn.Module, variables: dict) -> list[str]:
+    """Copy the flax variables of a ``nn/aux_experimental.py`` module (the
+    VAE, a feature extractor with its BN statistics, the decoder) into its
+    port, whose submodules carry the flax scope names.  Kernels: Conv
+    HWIO -> OIHW; ConvTranspose HWIO -> (in, out, kh, kw), flipped in
+    space (flax does not flip, torch's transposed convolution does); Dense
+    (in, out) -> (out, in), and the VAE's three linear layers' sides that
+    meet the (h/4, w/4, 64) maps from NHWC to NCHW order.  Every port
+    entry but BN's ``num_batches_tracked`` must receive one leaf.  Returns
+    the port keys written."""
+    from mmidet_tpu_torch.nn.aux_experimental import VAE, FlaxConvTranspose
+    sd = module.state_dict()
+    grid = getattr(module, "grid", None) if isinstance(module, VAE) else None
+    names = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var", "kernel": "weight"}
+    written = []
+    for collection in ("params", "batch_stats"):
+        for path, arr in _flatten(variables.get(collection, {})).items():
+            scope, leaf = ".".join(path[:-1]), path[-1]
+            sub = module.get_submodule(scope)
+            if leaf == "kernel" and isinstance(sub, FlaxConvTranspose):
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif leaf == "kernel" and arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif grid is not None and scope in ("fc_mu", "fc_logvar",
+                                                "dec_fc"):
+                h, w = grid
+                if leaf == "kernel" and scope != "dec_fc":
+                    arr = arr.reshape(h, w, 64, -1).transpose(
+                        2, 0, 1, 3).reshape(h * w * 64, -1)
+                elif scope == "dec_fc":
+                    lead = arr.shape[:-1]
+                    arr = arr.reshape(*lead, h, w, 64)
+                    arr = np.moveaxis(arr, -1, -3).reshape(*lead, -1)
+            if leaf == "kernel" and arr.ndim == 2:
+                arr = arr.T
+            key = f"{scope}.{names[leaf]}"
+            if key not in sd or tuple(sd[key].shape) != arr.shape:
+                raise KeyError(f"{collection}/{'/'.join(path)} -> {key}: "
+                               f"no port entry of shape {arr.shape}")
+            sd[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            written.append(key)
+    left = [k for k in sd if k not in written
+            and not k.endswith("num_batches_tracked")]
+    if left:
+        raise KeyError(f"port entries received no variable: {left}")
+    return written

@@ -5,9 +5,11 @@
 
 runs on the card, with mosaic batches unless ``--no-mosaic`` (or
 ``--rect``); ``main(argv, device="cpu")`` runs it on the CPU (a keyword
-argument, not a flag).  Options the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item (the trainer's
-``unported``; ``--evolve``: A15).  ``--sync-bn`` is accepted and does
+argument, not a flag).  ``--evolve N`` runs N generations of
+``train/evolve.py``, each a run under ``<project>/<name>_gen``, the
+history in ``<project>/<name>_evolve/evolve.txt``.  The data-parallel
+options raise ``NotImplementedError`` naming ROADMAP A13 (the trainer's
+``unported``).  ``--sync-bn`` is accepted and does
 nothing: one device holds the whole batch; so is ``--tp-min-out``, which
 only qualifies ``--n-model``.
 """
@@ -46,11 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run dir (continues in place), checkpoint dir, or "
                         "'latest'")
     p.add_argument("--upload-dataset", action="store_true",
-                   help="ROADMAP A15")
+                   help="version the dataset as an artifact")
     p.add_argument("--log-artifacts", action="store_true",
-                   help="ROADMAP A15")
+                   help="version checkpoints as model artifacts")
     p.add_argument("--artifact-alias", type=str, default="latest",
-                   help="ROADMAP A15")
+                   help="dataset artifact alias to pull")
     p.add_argument("--no-mosaic", action="store_true",
                    help="letterboxed batches with the basic augmentation "
                         "instead of mosaic")
@@ -64,12 +66,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer-groups", type=str, default="fixed",
                    choices=["fixed", "reference"])
     p.add_argument("--evolve", type=int, default=0, metavar="GENERATIONS",
-                   help="hyperparameter evolution: ROADMAP A15")
+                   help="hyperparameter evolution generations")
     p.add_argument("--weights", type=str, default="",
                    help="pretrained weights: a .pt state dict (tolerant "
                         "transfer)")
     p.add_argument("--image-weights", action="store_true",
-                   help="ROADMAP A15")
+                   help="resample train images by (1-mAP)^2 class weights")
     p.add_argument("--single-cls", action="store_true",
                    help="train as single-class dataset")
     p.add_argument("--multi-scale", action="store_true",
@@ -108,10 +110,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quad", action="store_true",
                    help="quad batches: groups of 4 -> one 2x-size sample "
                         "(--batch-size divisible by 4)")
-    p.add_argument("--bucket", type=str, default="", help="ROADMAP A15")
-    p.add_argument("--entity", type=str, default="", help="ROADMAP A15")
+    p.add_argument("--bucket", type=str, default="",
+                   help="gsutil bucket for per-epoch results upload")
+    p.add_argument("--entity", type=str, default="",
+                   help="W&B entity")
     p.add_argument("--bbox-interval", type=int, default=-1,
-                   help="ROADMAP A15")
+                   help="every N epochs, save annotated val images "
+                        "(+W&B bbox media when wandb is live)")
     p.add_argument("--sync-bn", action="store_true",
                    help="accepted; one device holds the whole batch")
     return p
@@ -120,9 +125,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, device="cuda"):
     set_logging()
     args = build_parser().parse_args(argv)
-    if args.evolve:
-        raise NotImplementedError("--evolve (train/evolve.py) is not ported "
-                                  "yet (ROADMAP A15)")
     cfg = TrainConfig(
         model=args.cfg, data=args.data, hyp=args.hyp, epochs=args.epochs,
         batch_size=args.batch_size, img_size=args.img_size,
@@ -148,6 +150,23 @@ def main(argv=None, device="cuda"):
         cache_images=args.cache_images, quad=args.quad,
         bucket=args.bucket, entity=args.entity,
         bbox_interval=args.bbox_interval)
+    if args.evolve:
+        import dataclasses
+
+        from mmidet_tpu_torch.train.evolve import evolve
+        from mmidet_tpu_torch.train.trainer import load_hyp
+
+        def train_fn(hyp):
+            c = dataclasses.replace(cfg, hyp=hyp,
+                                    workdir=cfg.workdir + "_gen")
+            return train(c, device=device)["best_fitness"]
+
+        best_fit, best_hyp = evolve(train_fn, load_hyp(cfg.hyp),
+                                    generations=args.evolve,
+                                    workdir=cfg.workdir + "_evolve")
+        print(f"evolve done: best fitness {best_fit:.4f}")
+        return {"best_fitness": best_fit, "hyp": best_hyp}
+
     out = train(cfg, device=device)
     print(f"done: best fitness {out['best_fitness']:.4f} "
           f"-> {out['workdir']}")

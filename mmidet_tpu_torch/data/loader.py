@@ -202,8 +202,10 @@ class MosaicLoader:
 
     ``use_native``: decode through the C++ fastloader (one call per batch
     and modality); None (default) takes it when it is available and the
-    dataset does not cache images.  Per-image sampling weights
-    (``--image-weights``) are ROADMAP A15."""
+    dataset does not cache images.  ``set_image_weights`` (the trainer's
+    ``image_weights``): later epochs draw their base indices ``n`` times
+    from the weights, ``rng.choice(n, n, p=w)`` in place of the
+    permutation; the companions stay uniform."""
 
     def __init__(self, dataset: PairedDataset, batch_size: int,
                  img_size: int = 640, max_labels_tile: int = 60,
@@ -220,18 +222,29 @@ class MosaicLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
+        self.image_weights = None  # optional (N,) sampling weights
 
     def __len__(self):
         return len(self.ds) // self.batch_size
 
     def set_image_weights(self, weights):
-        raise NotImplementedError("image_weights is not ported yet "
-                                  "(ROADMAP A15)")
+        """Per-image sampling weights (reference --image-weights,
+        train.py:715-727): the next epochs resample base indices ~ weights."""
+        w = np.asarray(weights, np.float64)
+        self.image_weights = w / w.sum()
+
+    def _indices(self, rng):
+        if self.image_weights is not None:
+            return rng.choice(len(self.ds), size=len(self.ds),
+                              p=self.image_weights)
+        return rng.permutation(len(self.ds))
 
     def _batches(self, rng, idx):
         n = len(self.ds)
         for b in range(len(self)):
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            # companions sample UNIFORMLY under image weights too: the
+            # reference draws them from range(n) (datasets.py:1223, 1794)
             groups = [[int(i)] + [int(x) for x in rng.integers(0, n, 3)]
                       for i in sel]
             if self.use_native:
@@ -245,7 +258,7 @@ class MosaicLoader:
     def __iter__(self):
         rng = np.random.default_rng(self.seed + self.epoch)
         self.epoch += 1
-        idx = rng.permutation(len(self.ds))
+        idx = self._indices(rng)
         return _prefetched(lambda: self._batches(rng, idx), self.prefetch)
 
 
@@ -311,7 +324,8 @@ class PairedLoader:
     ``use_native``: decode and letterbox through the C++ fastloader (one
     call per batch and modality); None (default) takes it when it is
     available and the dataset does not cache images, as the JAX package
-    does.  ``loader.use_native`` tells which leg was taken."""
+    does.  ``loader.use_native`` tells which leg was taken.
+    ``set_image_weights``: as ``MosaicLoader``'s, for the indices."""
 
     def __init__(self, dataset: PairedDataset, batch_size: int,
                  img_size: int = 640, max_labels: int = 120,
@@ -332,16 +346,27 @@ class PairedLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.epoch = 0
+        self.image_weights = None  # optional (N,) sampling weights
 
     def __len__(self):
         n = len(self.ds)
         return n // self.batch_size if self.drop_last else \
             (n + self.batch_size - 1) // self.batch_size
 
+    def set_image_weights(self, weights):
+        """Per-image sampling weights (reference --image-weights,
+        train.py:715-727): the next epochs resample indices ~ weights."""
+        w = np.asarray(weights, np.float64)
+        self.image_weights = w / w.sum()
+
     def _indices(self):
+        rng = np.random.default_rng(self.seed + self.epoch)
+        if self.image_weights is not None:
+            return rng.choice(len(self.ds), size=len(self.ds),
+                              p=self.image_weights)
         idx = np.arange(len(self.ds))
         if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+            rng.shuffle(idx)
         return idx
 
     def _collate_native(self, sel):

@@ -25,9 +25,19 @@ batch by 4 (``quad_batch``), ``multi_scale`` resizes it to a size drawn
 from ``multi_scale_sizes`` by ``default_rng(seed + 2)``, and ``remat``
 recomputes the train forward in the backward (``train/step.py``).
 
+The per-run options follow the JAX trainer too: ``image_weights``
+resamples each next epoch's images by ``labels_to_image_weights`` of the
+class weights times ``(1 - maps) ** 2`` (:792-802), ``bbox_interval``
+writes annotated val images every N epochs (:719-731), ``use_wandb``
+opens the logger's W&B leg when wandb imports (:588-592), the artifact
+options version the dataset, the checkpoints and the val predictions in
+``utils/artifacts.py``'s store and resume from ``wandb-artifact://``
+(:304-340, :382-395, :688-752), and ``bucket`` uploads ``results.txt``
+each evaluation (:773-775).
+
 ``train(cfg, device="cuda")`` runs on the card; without CUDA it raises
-unless ``device="cpu"``.  Options of the JAX trainer that are not ported
-raise ``NotImplementedError`` naming their ROADMAP item.
+unless ``device="cpu"``.  The data-parallel options (``mesh="on"``,
+``n_model``) raise ``NotImplementedError`` naming ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -67,9 +77,9 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` but ``fused_loop`` (the port runs
-    the two-dispatch order) and the fields that only qualify options not
-    ported here (``tp_min_out``, ``artifact_project``).  Fields marked "not
-    ported" raise when set away from their default."""
+    the two-dispatch order) and ``tp_min_out``, which only qualifies
+    ``n_model``.  Fields marked "not ported" raise when set away from
+    their default."""
     model: str = "yolov5l_fuse3_fourier"   # zoo name or YAML path
     mesh: str = "auto"   # 'auto': one device here; 'on': not ported (A13)
     n_model: int = 1     # tensor parallelism: not ported (A13)
@@ -92,7 +102,7 @@ class TrainConfig:
     resume: str = ""                        # run dir, ckpt dir or "latest"
     optimizer_groups: str = "fixed"         # 'fixed' | 'reference'
     autoanchor: bool = True                 # BPR check + kmeans refit
-    use_wandb: bool = False                 # not ported (A15)
+    use_wandb: bool = False      # W&B leg of the logger when wandb imports
     warmup_floor: int = 1000                # reference's warmup iter floor
     nbs: int = 64            # nominal batch size (ref train.py:564): sets
     #                          gradient accumulation round(nbs / batch)
@@ -103,7 +113,8 @@ class TrainConfig:
     #                          saves no memory here, only costs time
     #                          (train/step.py)
     weights: str = ""        # pretrained init: a .pt or bundle (tolerant)
-    image_weights: bool = False             # not ported (A15)
+    image_weights: bool = False  # resample train images by (1-mAP)^2 class
+    #                              weights each epoch (ref --image-weights)
     single_cls: bool = False
     multi_scale: bool = False    # random /gs size in [0.5, 1.5]x a batch
     #                              (ref train.py:778-783)
@@ -117,16 +128,21 @@ class TrainConfig:
     exist_ok: bool = False       # reuse workdir without incrementing
     workers: int = 2             # loader prefetch depth (ref --workers)
     freeze: tuple = ()           # parameter-name substrings to freeze
-    upload_dataset: bool = False            # not ported (A15)
-    log_artifacts: bool = False             # not ported (A15)
-    artifact_alias: str = "latest"          # not ported (A15)
+    upload_dataset: bool = False  # version the dataset as an artifact
+    #                               (ref --upload_dataset, wandb_utils.py)
+    log_artifacts: bool = False  # version checkpoints as model artifacts
+    artifact_alias: str = "latest"  # dataset artifact alias to pull
+    #                                 (ref --artifact_alias)
+    artifact_project: str = "mmidet_tpu"  # the store's (W&B's) project
     label_smoothing: float | None = None  # None = the hyp file's value
     cache_images: bool = False   # RAM-cache decoded images
     quad: bool = False           # groups of 4 -> one 2x-size sample
     #                              (ref --quad / collate_fn4)
-    bucket: str = ""                        # not ported (A15)
-    entity: str = ""                        # W&B entity: not ported (A15)
-    bbox_interval: int = -1                 # not ported (A15)
+    bucket: str = ""             # gsutil bucket for results upload
+    #                              (ref --bucket, train.py:860-861)
+    entity: str = ""             # W&B entity (ref --entity)
+    bbox_interval: int = -1      # every N epochs, annotated val images
+    #                              (+W&B media) (ref --bbox_interval)
 
 
 DEFAULT_HYP = {
@@ -156,14 +172,7 @@ def unported(cfg: TrainConfig) -> None:
     yet, naming its ROADMAP item."""
     checks = [
         (cfg.mesh == "on" or cfg.n_model > 1, "the mesh/n_model modes "
-         "(DDP)", "A13"),
-        (cfg.image_weights, "image_weights", "A15"),
-        (cfg.use_wandb or bool(cfg.entity), "wandb", "A15"),
-        (cfg.upload_dataset or cfg.log_artifacts or cfg.artifact_alias
-         != "latest" or str(cfg.resume).startswith("wandb-artifact://"),
-         "artifacts", "A15"),
-        (bool(cfg.bucket), "bucket", "A15"),
-        (cfg.bbox_interval > 0, "bbox_interval", "A15")]
+         "(DDP)", "A13")]
     for hit, what, item in checks:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
@@ -297,6 +306,28 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     dev = eval_device(device)
     hyp = load_hyp(cfg.hyp)
     unported(cfg)
+    from mmidet_tpu_torch.utils.artifacts import (default_backend,
+                                                  is_artifact_path,
+                                                  log_dataset_artifact,
+                                                  resolve_data_artifacts,
+                                                  resume_from_artifact)
+    art_backend = None
+    if cfg.upload_dataset or cfg.log_artifacts or \
+            is_artifact_path(cfg.resume):
+        art_backend = default_backend(project=cfg.artifact_project)
+    if is_artifact_path(cfg.resume):
+        # wandb-artifact://<project>/<run_id> (ref check_wandb_resume +
+        # download_model_artifact, wandb_utils.py:42-53,168-177): the
+        # artifact's checkpoint seeds a fresh workdir with the stored run
+        # config's epochs and hyp
+        r, art_meta = resume_from_artifact(cfg.resume, art_backend)
+        stored = art_meta.get("opt") or {}
+        if stored.get("epochs"):
+            cfg = dataclasses.replace(cfg, epochs=int(stored["epochs"]))
+        if stored.get("hyp"):
+            cfg = dataclasses.replace(cfg, hyp=stored["hyp"])
+            hyp = load_hyp(cfg.hyp)
+        cfg = dataclasses.replace(cfg, resume=r)
     cfg, hyp, workdir, resume_src = _resolve_run(cfg, hyp)
     unported(cfg)
     if cfg.mesh == "auto" and dev.type == "cuda" and \
@@ -313,6 +344,17 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                         "freeze": list(cfg.freeze)}, fh)
 
     data = load_data_yaml(cfg.data)
+    if cfg.upload_dataset:
+        # version the dataset and rewrite its paths to artifact references
+        # (ref check_and_upload_dataset, wandb_utils.py:116-124)
+        data = log_dataset_artifact(
+            data, art_backend, project=cfg.artifact_project,
+            out_yaml=os.path.join(workdir, "data_wandb.yaml"))
+    if any(is_artifact_path(data.get(k)) for k in
+           ("train_rgb", "train_ir", "val_rgb", "val_ir")):
+        data = resolve_data_artifacts(
+            data, art_backend or default_backend(cfg.artifact_project),
+            alias=cfg.artifact_alias)
     nc = 1 if cfg.single_cls else int(data["nc"])
     names = ["item"] if cfg.single_cls else \
         data.get("names", [str(i) for i in range(nc)])
@@ -427,7 +469,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
 
     from mmidet_tpu_torch.utils.logger import MetricLogger
     results_path = os.path.join(workdir, "results.txt")
-    mlog = MetricLogger(workdir)
+    mlog = MetricLogger(workdir, use_wandb=cfg.use_wandb,
+                        run_name=os.path.basename(workdir),
+                        config={**dataclasses.asdict(cfg),
+                                "freeze": list(cfg.freeze)},
+                        entity=cfg.entity or None)
     try:  # optional: matplotlib may be missing
         from mmidet_tpu_torch.utils.plots import plot_labels
         plot_labels(train_ds.labels, nc, workdir)
@@ -441,6 +487,25 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
 
     plotted = 0
     res = None
+    maps = np.zeros(nc)  # per-class mAP of the latest evaluation
+
+    def log_model_art(ep: int, fit_val: float, best: bool) -> None:
+        # the checkpoint dir as a model artifact with metadata and aliases
+        # (ref log_model, wandb_utils.py:181-191), run id = run dir name
+        if not (cfg.log_artifacts and art_backend is not None):
+            return
+        from mmidet_tpu_torch.utils.artifacts import log_model_artifact
+        try:
+            log_model_artifact(
+                art_backend, os.path.basename(workdir), ckpt_dir, ep,
+                cfg.epochs, fit_val, best=best,
+                project=cfg.artifact_project,
+                opt={"epochs": cfg.epochs, "model": cfg.model, "hyp": hyp,
+                     "batch_size": cfg.batch_size,
+                     "img_size": cfg.img_size})
+        except Exception:
+            logger.exception("model artifact logging failed")
+
     epochs_run = []
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
@@ -493,10 +558,24 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                    and (not cfg.notest or final))
         if do_eval:
             eval_model.load_state_dict(state.ema.state_dict())
+            # the val predictions -> a "progress" evaluation artifact (ref
+            # log_training_progress, wandb_utils.py:265-306)
+            pred_json = os.path.join(workdir, "val_predictions.json") \
+                if (cfg.log_artifacts and art_backend is not None) else None
+            media_dir = None
+            if cfg.bbox_interval > 0 and \
+                    ((epoch + 1) % cfg.bbox_interval == 0 or final):
+                media_dir = os.path.join(workdir, "media", f"epoch{epoch}")
             res = evaluate(eval_model, PairedLoader(
                 val_ds, cfg.batch_size, img_size, cfg.max_labels,
                 drop_last=False, prefetch=cfg.workers, scaleup=False),
-                nc, names=names, device=dev)
+                nc, names=names, device=dev, save_json=pred_json,
+                media_dir=media_dir)
+            if media_dir is not None and os.path.isdir(media_dir):
+                import glob
+                mlog.log_media_files(
+                    epoch, "val/bbox",
+                    sorted(glob.glob(os.path.join(media_dir, "*.jpg"))))
             fit = float(fitness(res.fitness_vector())[0])
             is_best = fit > best_fit
             if is_best:
@@ -505,16 +584,36 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
             if not cfg.nosave or final:
                 save_checkpoint(ckpt_dir, state, epoch, meta)
                 saved_this_epoch = True
+                log_model_art(epoch, fit, is_best)
+            if pred_json and os.path.isfile(pred_json):
+                try:
+                    art_backend.log_artifact(
+                        f"run_{os.path.basename(workdir)}_progress",
+                        "evaluation", {"val_predictions.json": pred_json},
+                        metadata={"epoch": epoch, "mAP50": res.map50},
+                        aliases=("latest", f"epoch {epoch + 1}",
+                                 "best" if is_best else ""),
+                        project=cfg.artifact_project)
+                except Exception:
+                    logger.exception("progress artifact logging failed")
             if is_best and not cfg.nosave:
                 # the rolling keep=3 would otherwise drop the best epoch
                 save_checkpoint(os.path.join(workdir, "ckpt_best"), state,
                                 epoch, meta, keep=1)
+            # classes that were not evaluated take the MEAN mAP, as the
+            # reference (maps = np.zeros(nc) + map, test.py:305)
+            maps[:] = res.map
+            for i, nm in enumerate(names):
+                maps[i] = res.per_class.get(nm, {}).get("ap", res.map)
             with open(results_path, "a") as fh:
                 fh.write(
                     f"{epoch}/{cfg.epochs - 1} "
                     f"box {mloss[0]:.4f} obj {mloss[1]:.4f} "
                     f"cls {mloss[2]:.4f} P {res.mp:.4f} R {res.mr:.4f} "
                     f"mAP50 {res.map50:.4f} mAP {res.map:.4f}\n")
+            if cfg.bucket:  # per-epoch results upload (ref train.py:860)
+                from mmidet_tpu_torch.utils.general import gsutil_upload
+                gsutil_upload(cfg.bucket, results_path)
             mlog.log_metrics(epoch, {
                 "train/box": mloss[0], "train/obj": mloss[1],
                 "train/cls": mloss[2], "train/aux": mloss[3],
@@ -532,6 +631,18 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
             # periodic save is independent of eval/nosave (ref save_period)
             save_checkpoint(ckpt_dir, state, epoch,
                             {"best_fitness": best_fit})
+            log_model_art(epoch, best_fit, False)
+        if cfg.image_weights and not final:
+            # every epoch, as the reference (train.py:715-727): the class
+            # weights times (1 - maps)^2 of the latest evaluation; the
+            # next epoch draws its images by them
+            from mmidet_tpu_torch.utils.general import (
+                labels_to_class_weights, labels_to_image_weights)
+            cw = labels_to_class_weights(train_ds.labels, nc)
+            iw = labels_to_image_weights(train_ds.labels, nc,
+                                         cw * (1 - maps) ** 2)
+            if hasattr(loader, "set_image_weights") and iw.sum() > 0:
+                loader.set_image_weights(iw)
 
     mlog.close()
     try:  # optional: matplotlib may be missing

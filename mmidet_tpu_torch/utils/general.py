@@ -1,8 +1,9 @@
 """General utilities of the CLIs and the trainer.
 
-A copy of the functions of ``mmidet_tpu/utils/general.py`` that the port's
-CLIs and trainer use; reference ``utils/general.py``: run-dir management,
-size checks, colored logging, detection crops.
+A copy of ``mmidet_tpu/utils/general.py``; reference ``utils/general.py``:
+run-dir management, size checks, colored logging, class and image weights
+(``--image-weights``), detection crops, the second-stage classifier and
+the ``--bucket`` upload.
 """
 
 from __future__ import annotations
@@ -68,6 +69,28 @@ def get_latest_run(search_dir: str = ".") -> str:
     return os.path.dirname(max(ckpts, key=os.path.getctime)) if ckpts else ""
 
 
+def labels_to_class_weights(labels: list[np.ndarray], nc: int) -> np.ndarray:
+    """Inverse-frequency class weights (ref labels_to_class_weights)."""
+    if not labels:
+        return np.ones(nc)
+    classes = np.concatenate([l[:, 0] for l in labels if len(l)]
+                             or [np.zeros(0)]).astype(int)
+    counts = np.bincount(classes, minlength=nc).astype(float)
+    counts[counts == 0] = 1
+    weights = 1.0 / counts
+    return weights / weights.sum()
+
+
+def labels_to_image_weights(labels: list[np.ndarray], nc: int,
+                            class_weights: np.ndarray) -> np.ndarray:
+    """Per-image sampling weights from class weights
+    (ref labels_to_image_weights)."""
+    class_counts = np.array(
+        [np.bincount(l[:, 0].astype(int), minlength=nc) if len(l)
+         else np.zeros(nc) for l in labels])
+    return (class_weights.reshape(1, nc) * class_counts).sum(1)
+
+
 def save_one_box(xyxy, img: np.ndarray, path: str = "crop.jpg",
                  gain: float = 1.02, pad: int = 10, square: bool = False,
                  save: bool = True) -> np.ndarray:
@@ -87,3 +110,41 @@ def save_one_box(xyxy, img: np.ndarray, path: str = "crop.jpg",
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         Image.fromarray(crop).save(path)
     return crop
+
+
+def apply_classifier(detections: np.ndarray, classify_fn, img: np.ndarray,
+                     img_size: int = 224) -> np.ndarray:
+    """Second-stage classifier filter: re-classify each detection crop and
+    drop detections whose classifier label disagrees (ref general.py
+    apply_classifier, over any ``classify_fn(batch) -> labels``)."""
+    if not len(detections):
+        return detections
+    from PIL import Image
+    crops = []
+    for *xyxy, conf, cls in detections:
+        crop = save_one_box(xyxy, img, save=False)
+        if not crop.size:
+            crop = np.zeros((8, 8, 3), np.uint8)
+        crop = np.asarray(Image.fromarray(crop).resize(
+            (img_size, img_size), Image.BILINEAR), np.float32) / 255.0
+        crops.append(crop)
+    labels = np.asarray(classify_fn(np.stack(crops)))
+    keep = labels == detections[:, 5].astype(labels.dtype)
+    return detections[keep]
+
+
+def gsutil_upload(bucket: str, *paths: str) -> bool:
+    """Best-effort ``gsutil cp <paths> gs://<bucket>/`` (reference
+    ``--bucket`` uploads, train.py:860-861).  Returns False when gsutil is
+    not on ``PATH`` or the copy fails."""
+    import shutil
+    import subprocess
+    if not bucket or shutil.which("gsutil") is None:
+        return False
+    dest = bucket if bucket.startswith("gs://") else f"gs://{bucket}"
+    try:
+        return subprocess.run(
+            ["gsutil", "cp", *[str(p) for p in paths], dest.rstrip("/") + "/"],
+            capture_output=True, timeout=300).returncode == 0
+    except Exception:
+        return False

@@ -1,10 +1,10 @@
-"""Plotting: the color palette, box drawing, the confusion-matrix plot and
-the trainer's plots (train batches, label histograms, results curves).
+"""Plotting: the color palette, box drawing, the confusion-matrix plot,
+the trainer's plots (train batches, label histograms, results curves), the
+LR schedule and the evolution panels.
 
-A copy of the parts of ``mmidet_tpu/utils/plots.py`` that the port's
-evaluator, CLIs and trainer use; reference ``utils/plots.py:29-445``.  The
-matplotlib plots are optional: their callers skip them where matplotlib is
-missing.
+A copy of ``mmidet_tpu/utils/plots.py``; reference
+``utils/plots.py:29-445``.  The matplotlib plots are optional: their
+callers skip them where matplotlib is missing.
 """
 
 from __future__ import annotations
@@ -155,3 +155,55 @@ def plot_labels(labels: list[np.ndarray], nc: int, save_dir: str):
     fig.savefig(out, dpi=150)
     plt.close(fig)
     return out
+
+
+def lr_curve(sched, steps: int | None = None):
+    """(steps, lrs) that ``plot_lr_schedule`` draws: the schedule at every
+    ``max(steps // 500, 1)``-th step of the run."""
+    from mmidet_tpu_torch.train.schedule import lr_schedule
+    steps = steps or sched.epochs * sched.steps_per_epoch
+    fn = lr_schedule(sched)
+    xs = np.arange(steps)[:: max(steps // 500, 1)]
+    return xs, [float(fn(x)) for x in xs]
+
+
+def plot_lr_schedule(sched, save_path: str, steps: int | None = None):
+    """LR curve over training (ref plots.py plot_lr_scheduler)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    xs, ys = lr_curve(sched, steps)
+    fig, ax = plt.subplots(figsize=(7, 4), tight_layout=True)
+    ax.plot(xs, ys)
+    ax.set_xlabel("step")
+    ax.set_ylabel("lr")
+    fig.savefig(save_path, dpi=150)
+    plt.close(fig)
+    return save_path
+
+
+def plot_evolve(evolve_txt: str, save_path: str | None = None):
+    """Fitness-vs-hyperparameter scatter panels (ref plots.py
+    plot_evolution)."""
+    import json
+
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    with open(evolve_txt) as fh:
+        rows = [json.loads(l) for l in fh if l.strip()]
+    if not rows:
+        return None
+    keys = sorted(rows[0]["hyp"].keys())[:25]
+    fit = np.asarray([r["fitness"] for r in rows])
+    cols = 5
+    rws = (len(keys) + cols - 1) // cols
+    fig, axes = plt.subplots(rws, cols, figsize=(3 * cols, 2.4 * rws),
+                             tight_layout=True)
+    for ax, k in zip(axes.flat, keys):
+        ax.scatter([r["hyp"][k] for r in rows], fit, s=8, alpha=0.6)
+        ax.set_title(k, fontsize=8)
+    save_path = save_path or evolve_txt.replace(".txt", ".png")
+    fig.savefig(save_path, dpi=120)
+    plt.close(fig)
+    return save_path

@@ -1540,3 +1540,112 @@ def test_reference_checkpoint_loads_on_the_card(cuda, tmp_path):
     got = model.state_dict()
     assert list(got) == list(want)
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# ------------------------- inference sources, heatmaps and the profiler
+def _fourier_model():
+    """The l-scale fourier grammar at small depth, BN folded, f32, on the
+    kernel routes (K3, K4 at its four levels)."""
+    torch.manual_seed(0)
+    return fold_batchnorm(TwoStreamDetector(
+        two_stream_spec("l", "fourier", nc=2, fusion_layers=2),
+        kernel_cem=True, kernel_merge=True)).eval()
+
+
+def test_sources_forward_through_k3_k4_k2_on_the_card(cuda, tmp_path):
+    """Two ``LoadImages`` in lockstep (stills, then an MJPG video that cv2
+    writes here) through the model at batch 1: each pair's forward + NMS
+    on the card (K3 1, K4 4, K2 1 a frame) against the CPU's."""
+    import cv2
+    from PIL import Image
+
+    from mmidet_tpu_torch.data.sources import LoadImages
+    from mmidet_tpu_torch.ops.nms import non_max_suppression
+    rng = np.random.default_rng(0)
+    for mod in ("rgb", "ir"):
+        (tmp_path / mod).mkdir()
+        for i in range(2):
+            Image.fromarray((rng.random((48, 64, 3)) * 255).astype(
+                np.uint8)).save(tmp_path / mod / f"p{i}.jpg")
+        w = cv2.VideoWriter(str(tmp_path / mod / "clip.avi"),
+                            cv2.VideoWriter_fourcc(*"MJPG"), 10, (64, 48))
+        for _ in range(3):
+            w.write((rng.random((48, 64, 3)) * 255).astype(np.uint8))
+        w.release()
+    model = _fourier_model()
+    card = _fourier_model().to(cuda)
+    n = 0
+    for (_, a, *_), (_, b, *_) in zip(LoadImages(str(tmp_path / "rgb"), 64),
+                                      LoadImages(str(tmp_path / "ir"), 64)):
+        rgb = torch.from_numpy(a[None]).float() / 255
+        ir = torch.from_numpy(b[None]).float() / 255
+        with torch.no_grad():
+            want = model(rgb, ir)["pred"]
+            before = (cem_cuda.fused_cem.launches,
+                      fusion_cuda.fused_gpt_merge.launches,
+                      nms_cuda.nms_greedy.launches)
+            got = card(rgb.to(cuda), ir.to(cuda))["pred"]
+            dets, valid = non_max_suppression(got, 0.001, 0.6)
+        assert (cem_cuda.fused_cem.launches - before[0],
+                fusion_cuda.fused_gpt_merge.launches - before[1],
+                nms_cuda.nms_greedy.launches - before[2]) == (1, 4, 1)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-2, atol=2e-2)
+        assert dets.shape == (1, 300, 6) and valid.any()
+        n += 1
+    assert n == 5
+
+
+def test_feature_heatmap_on_the_card_matches_cpu(cuda):
+    """``feature_heatmap`` at a backbone row after the CEM (K3) and at two
+    fusion rows (K4's merged first output) of the model conditioned on a
+    checkerboard pair (``chip_smoke.py``'s ``condition``), card against
+    CPU, within 2% of the [0, 1] range.  At the seeded init the fusion
+    rows' channel sums nearly cancel, so that one bf16 step of K4's merged
+    outputs moves the min-max normalised map by its whole range;
+    conditioned, a bf16 step of every channel moves it by 0.4% at most
+    (measured on the CPU)."""
+    from mmidet_tpu_torch.utils.gradcam import capture_names, feature_heatmap
+    gen = torch.Generator().manual_seed(1)
+    yy, xx = torch.meshgrid(torch.arange(64), torch.arange(64),
+                            indexing="ij")
+    board = ((xx // 16 + yy // 16) % 2).float()[None, :, :, None].expand(
+        1, 64, 64, 3)
+    rgb = 0.8 * board + 0.2 * torch.rand(1, 64, 64, 3, generator=gen)
+    ir = 0.8 * (1 - board) + 0.2 * torch.rand(1, 64, 64, 3, generator=gen)
+    model = _fourier_model()
+    _chip_smoke().condition(torch, model, rgb, ir)
+    card = _fourier_model()
+    card.load_state_dict(model.state_dict())
+    card = card.to(cuda)
+    names = sorted(capture_names(model))
+    layers = ["l1_", "l6", next(k for k in names if k.endswith("_GPT"))]
+    for layer in layers:
+        want = feature_heatmap(model, rgb, ir, layer)
+        got = feature_heatmap(card, rgb.to(cuda), ir.to(cuda), layer)
+        assert got.shape == want.shape and got.max() == pytest.approx(1.0)
+        np.testing.assert_allclose(got, want, atol=2e-2, rtol=0,
+                                   err_msg=layer)
+
+
+def test_profiler_on_the_card(cuda, tmp_path):
+    """``trace`` names K3's and K4's kernels in its Chrome trace;
+    ``model_cost`` counts on the card what it counts on the CPU (the ops'
+    flop formulas); ``bench_fn`` times the forward."""
+    import json
+
+    from mmidet_tpu_torch.utils.profiler import bench_fn, model_cost, trace
+    model = _fourier_model()
+    card = _fourier_model().to(cuda)
+    x = torch.rand(1, 64, 64, 3)
+    xc = x.to(cuda)
+    with torch.no_grad():
+        with trace(str(tmp_path)):
+            card(xc, xc)
+        assert bench_fn(lambda: card(xc, xc), iters=3) > 0
+    names = [e.get("name", "") for e in json.loads(
+        (tmp_path / "trace.json").read_text())["traceEvents"]]
+    assert any("cem_kernel" in n for n in names)
+    assert any("merge_kernel" in n for n in names)
+    want, got = model_cost(model, x, x), model_cost(card, xc, xc)
+    assert got["gflops"] == want["gflops"] > 0
+    assert got["params_m"] == want["params_m"]

@@ -263,8 +263,12 @@ def test_mosaic_loader_matches_jax_over_two_epochs(rect, tmp_path,  # noqa
         for g, w in pairs:
             _same(g, w)
     assert got.epoch == want.epoch == 2
-    with pytest.raises(NotImplementedError, match="A15"):
-        got.set_image_weights(np.ones(5))
+    # per-image weights: the next epoch's base images drawn by them, as
+    # JAX's loader draws them
+    for loader in (got, want):
+        loader.set_image_weights(np.arange(1.0, len(p) + 1))
+    for g, w in zip(got, want, strict=True):
+        _same(g, w)
 
 
 def test_quad_batch_given_jax_take_up():

@@ -305,3 +305,37 @@ def test_export_modules_are_covered_and_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             export.main(["--cfg", "yolov5t_add"])
+
+
+def test_tenth_slice_modules_are_covered_and_default_to_the_card(tmp_path):
+    """The modules of the trainer's remaining options, the inference
+    sources and the utils leftovers are among the files the import rule
+    above reads; the trainer and the train CLI with those options (and
+    ``--evolve``) still run on the card unless asked for the CPU; only the
+    data-parallel options (A13) are left unported, and no port file
+    raises for ROADMAP A15 any more."""
+    import inspect
+
+    from mmidet_tpu_torch.cli import train as train_cli
+    from mmidet_tpu_torch.train import trainer
+    port = ROOT / "mmidet_tpu_torch"
+    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
+    assert {"data/sources.py", "train/evolve.py", "utils/artifacts.py",
+            "utils/logger.py", "utils/general.py", "utils/plots.py",
+            "utils/profiler.py", "utils/gradcam.py", "utils/ds_fusion.py",
+            "utils/downloads.py", "nn/aux_experimental.py",
+            "bridge.py"} <= files
+    checks = inspect.getsource(trainer.unported)
+    assert '"A13"' in checks and "A15" not in checks
+    for f in sorted(port.rglob("*.py")):
+        assert "A15" not in f.read_text(), f
+    if not torch.cuda.is_available():
+        cfg = trainer.TrainConfig(data="unused.yaml", mosaic_prob=0.0,
+                                  image_weights=True, log_artifacts=True,
+                                  bbox_interval=1, use_wandb=True,
+                                  bucket="b", workdir=str(tmp_path / "x"))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            trainer.train(cfg)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_cli.main(["--data", "unused.yaml", "--evolve", "1",
+                            "--project", str(tmp_path)])

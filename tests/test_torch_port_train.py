@@ -495,13 +495,16 @@ def test_trainer_end_to_end_against_jax(data_yaml, tmp_path, add_pair,
 
 
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path):
-    base = trainer.TrainConfig(data="unused.yaml",
+    """The data-parallel modes (A13) raise; the options ported since
+    (image weights, W&B, artifacts, the bucket upload, bbox media) get past
+    the check to the dataset YAML, which does not exist here."""
+    base = trainer.TrainConfig(data=str(tmp_path / "unused.yaml"),
                                workdir=str(tmp_path / "x"))
-    for kw, item in (({"mesh": "on"}, "A13"), ({"n_model": 2}, "A13"),
-                     ({"image_weights": True}, "A15"),
-                     ({"use_wandb": True}, "A15"),
-                     ({"log_artifacts": True}, "A15"),
-                     ({"bucket": "gs://b"}, "A15"),
-                     ({"bbox_interval": 1}, "A15")):
+    for kw, item in (({"mesh": "on"}, "A13"), ({"n_model": 2}, "A13")):
         with pytest.raises(NotImplementedError, match=item):
+            trainer.train(dataclasses.replace(base, **kw), device="cpu")
+    for kw in ({"image_weights": True}, {"use_wandb": True},
+               {"log_artifacts": True}, {"bucket": "gs://b"},
+               {"bbox_interval": 1}):
+        with pytest.raises(FileNotFoundError, match="unused.yaml"):
             trainer.train(dataclasses.replace(base, **kw), device="cpu")
