@@ -182,11 +182,32 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      Chrome trace names K3's and K4's kernels;
   25. ``aux_experimental_gate``: ``nn/aux_experimental.py``'s modules and
      losses at 64 px in f32, TF32 off, card against CPU (``AUX_TOL``);
-  26. the ``kernels`` summary line, the card line, and the final
+  26. ``dp_path``: data and tensor parallelism.  The flagship trains at
+     full width, 320 px, global batch 8, f32 with TF32 off, 2 steps from
+     one seeded init: (b) on a one-rank NCCL mesh
+     (``trainer.train_mesh``), the reference; (a) ``train`` over
+     ``[card] * 2`` (gloo ranks sharing the card, data 2) and ``[card] *
+     4`` (data 2 x model 2, ``tp_min_out`` 256: the wide layers hold half
+     their out channels); each run's metrics of every step (rtol
+     ``DP_METRIC_RTOL``) and its parameters, BN statistics and EMA
+     (``DP_MOVE_TOL`` over the whole state, ``DP_TENSOR_TOL`` a tensor)
+     against the reference, rank 0's evaluation checked
+     and counted as ``train_path``'s (K1 4, K2's large form 1 a batch);
+     (c) NCCL over two cards only where there are two, else the line
+     ``{"nccl_multi_card": "not run: 1 card"}``; (d) ``evaluate`` over
+     ``[card, card]`` on 7 val pairs at batch 6 (6, then 1 padded to 2),
+     the flagship (K3 1, K4 4 a shard, K2 1 a batch) and yolov5s_gpt4 (K3
+     1, K1 4 a shard), launches counted, every call checked against its plain
+     version, records and metrics identical to one device's at batch 3
+     (the shards' sizes); (e) ``BatchingService`` over ``[card, card]``
+     (max_batch 8), 8 requests at once, records identical to one device's
+     at max_batch 4;
+  27. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-21, 22-24) runs with every launch count set to 0 just before
-it and read just after; a kernel of the path that did not launch fails the
-run.  Phases 22-25 run after ``remat`` (step 12), before ``serve_path``.
+Every path (8-21, 22-24, 26) runs with every launch count set to 0 just
+before it and read just after; a kernel of the path that did not launch
+fails the run.  Phases 22-26 run after ``remat`` (step 12), before
+``serve_path``.
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
 call behind a spin kernel so that only the card's time counts.
@@ -1236,8 +1257,9 @@ def checked_kernels(torch, checks: list, paths: list):
     def spread(on_cpu, plain, out, n):
         """The plain version's own spread: on the CPU (sums in another
         order) against the card, on the call's first ``n`` images, beside
-        the kernel's error on the same images."""
-        top = checks[-1]["max_abs_ref"]
+        the kernel's error on the same images (absolute where the plain
+        output is all zeros: dp_path's pad shard)."""
+        top = checks[-1]["max_abs_ref"] or 1.0
         checks[-1]["plain_spread"] = max(
             float((c.float() - p[:n].float().cpu()).abs().max())
             for c, p in zip(on_cpu, plain)) / top
@@ -1308,7 +1330,7 @@ def check_summary(checks: list) -> dict:
                           sorted({tuple(c["shape"]) for c in cs})]}
         if "tol" in cs[0]:
             rec["max_err_over_max_ref"] = max(
-                c["max_abs_err"] / c["max_abs_ref"] for c in cs)
+                c["max_abs_err"] / (c["max_abs_ref"] or 1.0) for c in cs)
             rec["tol"] = cs[0]["tol"]
         for key in ("plain_spread", "err_same_images"):
             if key in cs[0]:
@@ -3791,6 +3813,355 @@ def phase_aux_experimental_gate(torch, dev, card: str):
     return rec
 
 
+DP_IMG = 320                    # dp_path: the flagship trains at 320 px,
+DP_BATCH = 8                    # global batch 8 (accumulate 1),
+DP_PAIRS = 16                   # 2 steps an epoch, 1 epoch
+DP_VAL_PAIRS = 7                # evaluate over [card, card] at batch 6:
+DP_EVAL_BATCH = 6               # 6, then 1 padded to 2
+DP_DATA = ROOT / "runs" / "chip_smoke_dp"  # git-ignored; removed after
+# the mesh legs against the one-rank run (NCCL at world size 1): the same
+# global batches, the same BatchNorm and loss sums, the same dropout
+# masks, TF32 off on every rank, so the runs differ by the order of f32
+# sums only (over the ranks, and cuDNN's per batch size).  In f64 on the
+# CPU, one step of the flagship's grammar at "t" width over data 2 and
+# over 2 x 2 moves every tensor as one process moves it, within 3e-13 of
+# its change (tests/test_torch_port_mesh.py::
+# test_f64_flagship_grammar_step_per_tensor).  In f32 here rounding
+# spreads unevenly: one tensor, the IR stream's SPP input conv
+# (model.27.cv1), differs by 4.7% of its change after 2 steps on an H100
+# in every run, and data 2 and 2 x 2 differ by 3.0% from each other on
+# it; the whole state by 2.4e-4 to 2.9e-4.  So two gates: the whole state
+# (|change of the run - change of the one rank| / |change of the one
+# rank| over every float entry of the model, and of the EMA, together)
+# within 1%, and each tensor's share within 10%.  A fault moves what it
+# touches by its own change: a missing gradient average halves or doubles
+# a tensor's change, 50% to 100%.
+DP_MOVE_TOL = 1e-2
+DP_TENSOR_TOL = 1e-1
+DP_MOVE_FLOOR = 1e-6
+# rank 0's loss metrics of every step against the one-rank run's: step 1
+# runs the same weights (4e-7 seen), step 2 after one update (4e-5 seen)
+DP_METRIC_RTOL = 1e-4
+# evaluate and BatchingService over [card, card] are held against one
+# device whose forwards take the shards' sizes (evaluate at batch 3,
+# BatchingService at max_batch 4): records and metrics identical.  One
+# device at the whole batch is not the reference: a bf16 forward of 3
+# images rounds otherwise than one of 6 (cuDNN picks its algorithm by
+# batch size), and at conf 0.001 records near a tie swap places or cross
+# the 300 cut (seen: 6% of a served batch's records unmatched)
+
+
+def dp_moves(torch, got: dict, want: dict, init: dict) -> dict:
+    """``got`` against ``want`` by how far ``want`` moved from ``init``
+    (see ``DP_MOVE_TOL``): over the whole state (``share``) and the worst
+    tensor; integer entries equal."""
+    worst = {"share": 0.0, "tensor_share": 0.0, "key": None}
+    diff2 = move2 = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        w = w.cpu()
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"dp_path: {k} differs: {g} {w}")
+            continue
+        diff2 += float(((g - w).double() ** 2).sum())
+        move2 += float(((w - init[k].cpu()).double() ** 2).sum())
+        top = w.abs().max()
+        ulp = 2 * float(torch.nextafter(top, top + 1) - top)
+        moved = float((w - init[k].cpu()).abs().max())
+        share = max(float((g - w).abs().max()) - ulp, 0.0) / max(
+            moved, DP_MOVE_FLOOR)
+        if share > worst["tensor_share"]:
+            worst.update(tensor_share=share, key=k, moved=moved)
+    worst["share"] = math.sqrt(diff2 / max(move2, 1e-30))
+    return worst
+
+
+def dp_train(torch, cfg, run, checked: bool):
+    """``run(cfg)`` (a trainer entry point) with rank 0, in this process,
+    recording its metrics of every step and its evaluations counted, and
+    with ``checked`` held call by call against the plain versions
+    (``checked_eval``); rank 0's checkpoint (whole tensors, 2.5 GB) is
+    counted, not written: a call's disk writes are capped.  Returns
+    (result, metrics, evals, seconds)."""
+    from unittest import mock
+
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+    metrics, evals = [], []
+    real_make = trainer_mod.make_train_step
+
+    def make(*a, **kw):
+        inner = real_make(*a, **kw)
+
+        def step(state, batch, group=None):
+            out = inner(state, batch, group)
+            metrics.append({k: float(v) for k, v in out.items()})
+            return out
+        return step
+    real_eval = trainer_mod.evaluate
+
+    def counted(model, loader, nc, **kw):
+        if any(read_counts().values()):
+            raise AssertionError("dp_path: the train steps launched kernels")
+        res = real_eval(model, loader, nc, **kw)
+        nb = len(loader)
+        evals.append({"batches": nb, "launches": read_counts(
+            fused_token_transformer=4 * nb, nms_greedy=nb,
+            nms_greedy_large=nb)})
+        zero_counts()
+        return res
+    saves = []
+
+    def save(ckpt_dir, state, epoch, meta=None, keep=3):
+        saves.append({"epoch": epoch, "entries": len(
+            state.model.state_dict()) + len(state.ema.state_dict())})
+    zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(trainer_mod, "make_train_step", make), \
+            mock.patch.object(trainer_mod, "save_checkpoint", save), \
+            mock.patch.object(trainer_mod, "evaluate", checked_eval(
+                torch, "dp_path", real_eval, evals) if checked else counted):
+        out = run(cfg)
+    if len(saves) != 1:
+        raise AssertionError(f"dp_path: rank 0 saved {saves}")
+    return out, metrics, evals, time.perf_counter() - t0
+
+
+def eval_records(path: str) -> list:
+    """An evaluation's COCO records by image, as ``record_gap`` reads
+    them."""
+    with open(path) as fh:
+        recs = json.load(fh)
+    by_image = {}
+    for r in recs:
+        x, y, w, h = r["bbox"]
+        by_image.setdefault(r["image_id"], []).append(
+            {"class": r["category_id"], "xmin": x, "ymin": y,
+             "xmax": x + w, "ymax": y + h, "confidence": r["score"]})
+    return [by_image[k] for k in sorted(by_image)]
+
+
+def phase_dp_path(torch, dev, card: str):
+    """Data and tensor parallelism on the card (see the module docstring,
+    step 26): (a) ``train`` of the flagship over ``[dev] * 2`` (gloo, data
+    2) and ``[dev] * 4`` (data 2 x model 2, ``tp_min_out`` 256), (b) the
+    same steps on a one-rank NCCL mesh, the reference of the others, (c)
+    NCCL over two cards where there are two, (d) ``evaluate`` over two
+    entries of ``dev`` on a ragged set, flagship (K3 + K4 + K2) and
+    yolov5s_gpt4 (K3 + K1 + K2), (e) ``BatchingService`` over two entries.
+    Returns the record."""
+    import dataclasses
+    import shutil
+    import threading
+
+    from mmidet_tpu_torch.cli import val as val_cli
+    from mmidet_tpu_torch.data.datasets import PairedDataset, load_data_yaml
+    from mmidet_tpu_torch.data.loader import PairedLoader
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    from mmidet_tpu_torch.deploy.serve import BatchingService
+    from mmidet_tpu_torch.eval.evaluator import evaluate
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    from mmidet_tpu_torch.parallel.mesh import tp_modules
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DP_DATA, ignore_errors=True)
+    make_synthetic_pair_dataset(str(DP_DATA / "data"), n=DP_PAIRS,
+                                img=DP_IMG)
+    # rank 0's evaluation: one batch
+    data = make_synthetic_pair_dataset(str(DP_DATA / "data"),
+                                       n=DP_VAL_PAIRS, img=DP_IMG, seed=1,
+                                       split="val")
+    # the trainer's own seeded init (trainer.py: seed 0, CPU RNG)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        first = TwoStreamDetector(get_model_spec("yolov5l_fuse3_fourier",
+                                                 nc=2), aux_mode="reference")
+    init = {k: v.clone() for k, v in first.state_dict().items()}
+    tp_layers = len(tp_modules(first, 2, 256))
+    del first
+    base = trainer_mod.TrainConfig(
+        model="yolov5l_fuse3_fourier", data=data,
+        hyp={"lr0": 1e-3, "warmup_bias_lr": 1e-3}, epochs=1,
+        batch_size=DP_BATCH, img_size=DP_IMG, mosaic_prob=0.0,
+        aux_mode="reference", use_cem=True, dtype="float32", seed=0,
+        exist_ok=True, autoanchor=False, notest=True, nosave=True,
+        nbs=DP_BATCH, warmup_floor=1)
+    d0 = str(dev)
+    legs = [("nccl_world1", {}, lambda c: trainer_mod.train_mesh(
+                c, [d0], 1, 1)),
+            ("gloo_data2", {}, lambda c: trainer_mod.train(
+                c, devices=[d0] * 2)),
+            ("gloo_data2_model2", {"n_model": 2},
+             lambda c: trainer_mod.train(c, devices=[d0] * 4))]
+    if torch.cuda.device_count() > 1:
+        legs.append(("nccl_data2_cards", {}, lambda c: trainer_mod.train(
+            c, devices=["cuda:0", "cuda:1"])))
+    else:
+        print(json.dumps({"nccl_multi_card": "not run: 1 card"}),
+              flush=True)
+    want_mesh = {"nccl_world1": (1, 1, "nccl"), "gloo_data2": (2, 1, "gloo"),
+                 "gloo_data2_model2": (2, 2, "gloo"),
+                 "nccl_data2_cards": (2, 1, "nccl")}
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # every rank in true f32
+    train_recs, ref = {}, None
+    try:
+        for name, kw, run in legs:
+            cfg = dataclasses.replace(base, workdir=str(DP_DATA / name),
+                                      **kw)
+            out, metrics, evals, secs = dp_train(torch, cfg, run,
+                                                 checked=ref is None)
+            st = out["state"]
+            rec = {"seconds": secs, "mesh": out["mesh"], "steps": len(metrics),
+                   "loop_seconds": out["epochs"][0]["seconds"],
+                   "metrics": metrics, "evals": evals}
+            if ref is None:
+                ref = (st.model.state_dict(), st.ema.state_dict(), metrics)
+            else:
+                rec["metric_rel_gap"] = [max(
+                    abs(m[k] - r[k]) / max(abs(r[k]), 1e-12) for k in r)
+                    for m, r in zip(metrics, ref[2])]
+                rec["model_vs_world1"] = dp_moves(
+                    torch, st.model.state_dict(), ref[0], init)
+                rec["ema_vs_world1"] = dp_moves(
+                    torch, st.ema.state_dict(), ref[1], init)
+            train_recs[name] = rec
+            if name == "gloo_data2":
+                d2_state = (st.model.state_dict(), st.ema.state_dict())
+            elif name == "gloo_data2_model2":
+                rec["model_vs_data2"] = dp_moves(
+                    torch, st.model.state_dict(), d2_state[0], init)
+            print(json.dumps({"dp_path_leg": name, "seconds": secs,
+                              "loop_seconds": rec["loop_seconds"],
+                              **{k: rec[k] for k in rec if k.endswith(
+                                  ("_gap", "_world1", "_data2"))}}),
+                  flush=True)
+            m = out["mesh"]
+            ok = ((m["data"], m["model"], m["backend"]) == want_mesh[name]
+                  and len(metrics) == DP_PAIRS // DP_BATCH
+                  and len(evals) == 1
+                  and max(rec.get("metric_rel_gap", [0.0])) <= DP_METRIC_RTOL
+                  and all(rec.get(k, {"share": 0.0})["share"] <= DP_MOVE_TOL
+                          for k in ("model_vs_world1", "ema_vs_world1"))
+                  and all(rec.get(k, {"tensor_share": 0.0})["tensor_share"]
+                          <= DP_TENSOR_TOL
+                          for k in ("model_vs_world1", "ema_vs_world1")))
+            if not ok:
+                raise AssertionError(f"dp_path {name}: {rec}")
+            del out, st
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+    # (d) evaluate over two entries of the card, a ragged set; one device
+    # at half the batch meets the same shards (3, 3; 1, the pad dropped)
+    d = load_data_yaml(data)
+    ds = PairedDataset(d["val_rgb"], d["val_ir"], nc=2,
+                       cache_dir=str(DP_DATA))
+    sets = {how: (devs, list(PairedLoader(ds, bs, DP_IMG, drop_last=False,
+                                          prefetch=0)))
+            for how, devs, bs in (("one", [dev], DP_EVAL_BATCH // 2),
+                                  ("two", [dev, dev], DP_EVAL_BATCH))}
+    eval_recs = {}
+    for name, per_forward in (
+            ("yolov5l_fuse3_fourier", {"fused_cem": 1, "fused_gpt_merge": 4}),
+            ("yolov5s_gpt4", {"fused_token_transformer": 4,
+                              "fused_cem": 1})):
+        model, _ = val_cli.load_model_and_vars(name, "", 2, device=dev)
+        condition(torch, model, *(torch.from_numpy(
+            sets["one"][1][0][k]).to(dev).float() / 255.0
+            for k in ("rgb", "ir")))
+        runs = {}
+        for how, (devs, batches) in sets.items():
+            path = str(DP_DATA / f"{name}_{how}.json")
+            nb = len(batches)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = evaluate(model, batches, 2, device=dev, devices=devs,
+                           save_json=path)
+            secs = time.perf_counter() - t0
+            launches = read_counts(   # a forward a device entry a batch
+                **{k: v * nb * len(devs) for k, v in per_forward.items()},
+                nms_greedy=nb, nms_greedy_large=nb)
+            runs[how] = {"seconds": secs, "batches": nb, "launches": launches,
+                         "metrics": [res.mp, res.mr, res.map50, res.map],
+                         "records": eval_records(path)}
+        checks, paths = [], []
+        with checked_kernels(torch, checks, paths):
+            evaluate(model, sets["two"][1], 2, device=dev,
+                     devices=[dev, dev])
+        checked = check_summary(checks)
+        nb = runs["two"]["batches"]
+        eval_recs[name] = {
+            "checked": checked,
+            "records": [len(r) for r in runs["one"]["records"]],
+            "identical": all(runs["one"][k] == runs["two"][k]
+                             for k in ("records", "metrics")),
+            **{f"{k}_{how}": runs[how][k] for how in runs
+               for k in ("seconds", "batches", "launches", "metrics")}}
+        calls = {k: v["calls"] for k, v in checked.items()}
+        if not all(v["ok"] for v in checked.values()) or calls != {
+                **{k: 2 * v * nb for k, v in per_forward.items()},
+                "nms_greedy": nb} or not sum(eval_recs[name]["records"]) \
+                or not eval_recs[name]["identical"]:
+            raise AssertionError(f"dp_path evaluate {name}: "
+                                 f"{eval_recs[name]}")
+        if name == "yolov5l_fuse3_fourier":
+            flagship = model
+        else:
+            del model
+
+    # (e) BatchingService over two entries of the card, against one device
+    # at half the batch (the shards' size)
+    pairs, _ = serve_pairs()
+    pairs = pairs[:DP_BATCH]
+    answers, serve_rec = {}, {}
+    for how, devs, max_batch in (("one", None, DP_BATCH // 2),
+                                 ("two", [dev, dev], DP_BATCH)):
+        svc = BatchingService(flagship, [str(i) for i in range(2)],
+                              img_size=DP_IMG, conf_thres=SERVE_CONF,
+                              max_batch=max_batch, max_wait_ms=200.0,
+                              device=dev, devices=devs)
+        got = [None] * len(pairs)
+        threads = [threading.Thread(target=lambda i=i: got.__setitem__(
+            i, svc.predict(*pairs[i]))) for i in range(len(pairs))]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        fw = len(svc.batch_log) * (1 if devs is None else len(devs))
+        serve_rec[how] = {"seconds": time.perf_counter() - t0,
+                          "batches": len(svc.batch_log),
+                          "launches": read_counts(
+                              fused_cem=fw, fused_gpt_merge=4 * fw,
+                              nms_greedy=len(svc.batch_log))}
+        svc.close()
+        if any(a is None for a in got):
+            raise AssertionError(f"dp_path serve {how}: a request failed")
+        answers[how] = got
+    serve_rec.update(records=[len(r) for r in answers["one"]],
+                     identical=answers["one"] == answers["two"])
+    if not sum(serve_rec["records"]) or not serve_rec["identical"]:
+        raise AssertionError(f"dp_path serve: {serve_rec}")
+    del flagship
+    torch.cuda.empty_cache()
+    shutil.rmtree(DP_DATA, ignore_errors=True)
+    rec = {"phase": "dp_path", "card": card, "model": "yolov5l_fuse3_fourier",
+           "img": DP_IMG, "batch": DP_BATCH, "dtype": "float32",
+           "tp_layers_at_256": tp_layers, "train": train_recs,
+           "nccl_multi_card": ("run" if torch.cuda.device_count() > 1
+                               else "not run: 1 card"),
+           "evaluate": eval_recs, "serve": serve_rec,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
 def summed(recs, key):
     return sum(r[key] for r in recs)
 
@@ -3867,6 +4238,7 @@ def main() -> int:
     evolved = phase_evolve_path(torch, dev, name)
     sources = phase_sources_path(torch, dev, name)
     phase_aux_experimental_gate(torch, dev, name)
+    dp = phase_dp_path(torch, dev, name)
     shutil.rmtree(EVAL_DATA, ignore_errors=True)
     model, pairs, payloads, serving = phase_serve_path(torch, dev, name)
     int8 = phase_int8_path(torch, dev, name, model, pairs, payloads)
@@ -3915,6 +4287,13 @@ def main() -> int:
          # the exported yolov5s_gpt4 program, loaded back: 4 a call
          "export_launches": exported["gpt4"]["launches"][
              "fused_token_transformer"],
+         # dp_path: rank 0's evaluation of each train leg, and yolov5s_gpt4
+         # evaluated over two entries of the card (4 a shard)
+         "dp_train_eval_launches": {
+             k: sum(e["launches"]["fused_token_transformer"]
+                    for e in r["evals"]) for k, r in dp["train"].items()},
+         "dp_eval_launches": dp["evaluate"]["yolov5s_gpt4"][
+             "launches_two"]["fused_token_transformer"],
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": summed(k1_path, "ms"), "plain_ms": summed(k1_path, "plain_ms"),
          "bound_ms": summed(k1_path, "bound_ms"),
@@ -3937,6 +4316,8 @@ def main() -> int:
                            for r in yaml_recs},
          # one a frame of sources_path's timed LoadImages pass
          "sources_launches": sources["launches_timed"]["nms_greedy"],
+         # dp_path: one a batch of BatchingService over two entries
+         "dp_serve_launches": dp["serve"]["two"]["launches"]["nms_greedy"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
@@ -3951,6 +4332,11 @@ def main() -> int:
          # the exported flagship program, loaded back: 1 a call
          "export_launches": exported["flagship"]["launches"]["fused_cem"],
          "sources_launches": sources["launches_timed"]["fused_cem"],
+         # dp_path: one a shard, evaluate (both models) and
+         # BatchingService over two entries of the card
+         "dp_eval_launches": sum(r["launches_two"]["fused_cem"]
+                                 for r in dp["evaluate"].values()),
+         "dp_serve_launches": dp["serve"]["two"]["launches"]["fused_cem"],
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
@@ -3965,6 +4351,10 @@ def main() -> int:
          "export_launches": exported["flagship"]["launches"][
              "fused_gpt_merge"],
          "sources_launches": sources["launches_timed"]["fused_gpt_merge"],
+         "dp_eval_launches": dp["evaluate"]["yolov5l_fuse3_fourier"][
+             "launches_two"]["fused_gpt_merge"],
+         "dp_serve_launches": dp["serve"]["two"]["launches"][
+             "fused_gpt_merge"],
          "max_abs_err": max(r["max_abs_err"] for r in k4),
          "ms": summed(k4, "ms"), "plain_ms": summed(k4, "plain_ms"),
          "bound_ms": summed(k4, "bound_ms"),
@@ -3989,6 +4379,14 @@ def main() -> int:
              e["launches"]["nms_greedy_large"] for e in options["evals"]),
          "evolve_eval_launches": sum(
              e["launches"]["nms_greedy_large"] for e in evolved["evals"]),
+         # dp_path: rank 0's evaluations, and both models evaluated over
+         # two entries of the card
+         "dp_train_eval_launches": {
+             k: sum(e["launches"]["nms_greedy_large"] for e in r["evals"])
+             for k, r in dp["train"].items()},
+         "dp_eval_launches": sum(
+             r["launches_two"]["nms_greedy_large"]
+             for r in dp["evaluate"].values()),
          "max_abs_err": k2_large["max_abs_err"], "ms": k2_large["ms"],
          "plain_ms": k2_large["plain_ms"], "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"], "library_ms": None},

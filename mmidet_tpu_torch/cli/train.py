@@ -7,11 +7,11 @@ runs on the card, with mosaic batches unless ``--no-mosaic`` (or
 ``--rect``); ``main(argv, device="cpu")`` runs it on the CPU (a keyword
 argument, not a flag).  ``--evolve N`` runs N generations of
 ``train/evolve.py``, each a run under ``<project>/<name>_gen``, the
-history in ``<project>/<name>_evolve/evolve.txt``.  The data-parallel
-options raise ``NotImplementedError`` naming ROADMAP A13 (the trainer's
-``unported``).  ``--sync-bn`` is accepted and does
-nothing: one device holds the whole batch; so is ``--tp-min-out``, which
-only qualifies ``--n-model``.
+history in ``<project>/<name>_evolve/evolve.txt``.  ``--mesh`` (auto/on:
+data parallel over every visible card; off: one), ``--n-model`` and
+``--tp-min-out`` shape the trainer's mesh (``setup_mesh``).
+``--sync-bn`` is accepted and does nothing: a mesh computes BatchNorm's
+statistics over the global batch anyway, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -38,11 +38,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adam", action="store_true")
     p.add_argument("--mesh", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="'auto'/'off': one device; 'on' (data parallel) is "
-                        "ROADMAP A13")
+                   help="'auto'/'on': data parallel over every visible "
+                        "card (one rank a card); 'off': one device")
     p.add_argument("--n-model", type=int, default=1,
-                   help="tensor parallelism: ROADMAP A13")
-    p.add_argument("--tp-min-out", type=int, default=256)
+                   help="tensor parallelism: the mesh's model axis")
+    p.add_argument("--tp-min-out", type=int, default=256,
+                   help="shard layers with at least this many out channels")
     p.add_argument("--linear-lr", action="store_true")
     p.add_argument("--resume", type=str, default="",
                    help="run dir (continues in place), checkpoint dir, or "
@@ -118,7 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="every N epochs, save annotated val images "
                         "(+W&B bbox media when wandb is live)")
     p.add_argument("--sync-bn", action="store_true",
-                   help="accepted; one device holds the whole batch")
+                   help="accepted; a mesh's BatchNorm statistics are the "
+                        "global batch's anyway")
     return p
 
 
@@ -129,7 +131,7 @@ def main(argv=None, device="cuda"):
         model=args.cfg, data=args.data, hyp=args.hyp, epochs=args.epochs,
         batch_size=args.batch_size, img_size=args.img_size,
         workdir=f"{args.project}/{args.name}", adam=args.adam,
-        mesh=args.mesh, n_model=args.n_model,
+        mesh=args.mesh, n_model=args.n_model, tp_min_out=args.tp_min_out,
         linear_lr=args.linear_lr, resume=args.resume,
         mosaic_prob=0.0 if args.no_mosaic else 1.0,
         use_cem=not args.no_cem, aux_mode=args.aux_mode, dtype=args.dtype,

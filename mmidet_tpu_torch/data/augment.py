@@ -451,14 +451,28 @@ def augment_pair_basic(rgb, ir, labels, mask, draws: dict):
     return rgb, ir, labels, mask
 
 
+def take_rows(draws, rows: slice | None):
+    """``rows`` of every tensor of a draws tree (None: all)."""
+    if rows is None:
+        return draws
+    if isinstance(draws, dict):
+        return {k: take_rows(v, rows) for k, v in draws.items()}
+    return draws[rows]
+
+
 def make_batch_augment(s: int, hyp: AugmentHyp, max_labels: int,
                        mosaic: bool = True):
     """Returns ``fn(batch, gen) -> dict(rgb, ir, targets, mask)`` on the
     card, over dict(rgb4, ir4, labels4, mask4[, pads4]) (``mosaic``, the
-    default, as the JAX package's) or dict(rgb, ir, targets, mask)."""
+    default, as the JAX package's) or dict(rgb, ir, targets, mask).
+    ``fn(batch, gen, rows, total)``: ``batch`` holds ``rows`` of a global
+    batch of ``total``; the draws are made for all of it and its rows
+    taken (a data-parallel rank's share)."""
     if mosaic:
-        def fn(batch: dict, gen: torch.Generator) -> dict:
-            draws = mosaic_draws(batch["rgb4"].shape[0], s, hyp, gen)
+        def fn(batch: dict, gen: torch.Generator, rows=None,
+               total=None) -> dict:
+            draws = take_rows(mosaic_draws(
+                total or batch["rgb4"].shape[0], s, hyp, gen), rows)
             rgb, ir, lab, m = augment_pair_mosaic(
                 batch["rgb4"], batch["ir4"], batch["labels4"],
                 batch["mask4"], draws, s, hyp, max_labels,
@@ -466,8 +480,10 @@ def make_batch_augment(s: int, hyp: AugmentHyp, max_labels: int,
             return {"rgb": rgb, "ir": ir, "targets": lab, "mask": m}
         return fn
 
-    def fn(batch: dict, gen: torch.Generator) -> dict:
-        draws = basic_draws(batch["rgb"].shape[0], hyp, gen)
+    def fn(batch: dict, gen: torch.Generator, rows=None,
+           total=None) -> dict:
+        draws = take_rows(basic_draws(total or batch["rgb"].shape[0], hyp,
+                                      gen), rows)
         rgb, ir, lab, m = augment_pair_basic(
             batch["rgb"], batch["ir"], batch["targets"], batch["mask"],
             draws)

@@ -193,6 +193,20 @@ def _prefetched(make_batches, depth: int):
             t.join(timeout=0.01)
 
 
+def _own_rows(sel, rows: slice | None, batch_size: int):
+    """A data-parallel rank's ``rows`` of a full batch ``sel`` (and True);
+    a ragged batch whole (and False)."""
+    if rows is not None and len(sel) == batch_size:
+        return sel[rows], True
+    return sel, False
+
+
+def _marked(batch: dict, rows: slice | None, split: bool) -> dict:
+    if rows is not None:
+        batch["split"] = split
+    return batch
+
+
 class MosaicLoader:
     """Training loader of mosaic pool batches (4 tiles a sample: the
     indexed image + 3 uniformly random ones, as the reference).  An epoch's
@@ -205,7 +219,14 @@ class MosaicLoader:
     dataset does not cache images.  ``set_image_weights`` (the trainer's
     ``image_weights``): later epochs draw their base indices ``n`` times
     from the weights, ``rng.choice(n, n, p=w)`` in place of the
-    permutation; the companions stay uniform."""
+    permutation; the companions stay uniform.
+
+    ``rows`` (a slice; the data-parallel trainer's ``batch_rows``): each
+    full batch is drawn whole and only these rows are decoded, the batch
+    marked ``split``; this holds for ``RectLoader`` and ``PairedLoader``
+    too, whose ragged final batch comes whole, ``split`` False."""
+
+    rows: slice | None = None
 
     def __init__(self, dataset: PairedDataset, batch_size: int,
                  img_size: int = 640, max_labels_tile: int = 60,
@@ -247,13 +268,15 @@ class MosaicLoader:
             # reference draws them from range(n) (datasets.py:1223, 1794)
             groups = [[int(i)] + [int(x) for x in rng.integers(0, n, 3)]
                       for i in sel]
+            groups, split = _own_rows(groups, self.rows, self.batch_size)
             if self.use_native:
-                yield collate_mosaic_pool_native(
+                out = collate_mosaic_pool_native(
                     self.ds, groups, self.img_size, self.max_labels_tile)
             else:
-                yield collate_mosaic_pool(
+                out = collate_mosaic_pool(
                     [[self.ds[j] for j in g] for g in groups],
                     self.img_size, self.max_labels_tile)
+            yield _marked(out, self.rows, split)
 
     def __iter__(self):
         rng = np.random.default_rng(self.seed + self.epoch)
@@ -270,6 +293,7 @@ class RectLoader:
     letterboxes to squares only)."""
 
     use_native = False
+    rows: slice | None = None
 
     def __init__(self, dataset: PairedDataset, batch_size: int,
                  img_size: int = 640, max_labels: int = 120,
@@ -312,9 +336,11 @@ class RectLoader:
     def __iter__(self):
         for b, shape_hw in enumerate(self.shapes):
             sel = self.order[b * self.batch_size:(b + 1) * self.batch_size]
+            sel, split = _own_rows(sel, self.rows, self.batch_size)
             samples = [self.ds[int(i)] for i in sel]
-            yield collate_paired(samples, self.img_size, self.max_labels,
-                                 shape_hw=shape_hw, scaleup=self.scaleup)
+            yield _marked(collate_paired(
+                samples, self.img_size, self.max_labels, shape_hw=shape_hw,
+                scaleup=self.scaleup), self.rows, split)
 
 
 class PairedLoader:
@@ -325,7 +351,9 @@ class PairedLoader:
     call per batch and modality); None (default) takes it when it is
     available and the dataset does not cache images, as the JAX package
     does.  ``loader.use_native`` tells which leg was taken.
-    ``set_image_weights``: as ``MosaicLoader``'s, for the indices."""
+    ``set_image_weights`` and ``rows``: as ``MosaicLoader``'s."""
+
+    rows: slice | None = None
 
     def __init__(self, dataset: PairedDataset, batch_size: int,
                  img_size: int = 640, max_labels: int = 120,
@@ -405,12 +433,14 @@ class PairedLoader:
     def _batches(self, idx):
         for b in range(len(self)):
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            sel, split = _own_rows(sel, self.rows, self.batch_size)
             if self.use_native:
-                yield self._collate_native(sel)
+                out = self._collate_native(sel)
             else:
                 samples = [self.ds[int(i)] for i in sel]
-                yield collate_paired(samples, self.img_size, self.max_labels,
+                out = collate_paired(samples, self.img_size, self.max_labels,
                                      scaleup=self.scaleup)
+            yield _marked(out, self.rows, split)
 
     def __iter__(self):
         idx = self._indices()

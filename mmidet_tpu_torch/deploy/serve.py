@@ -37,6 +37,7 @@ from mmidet_tpu_torch.data.datasets import letterbox_np
 from mmidet_tpu_torch.eval.evaluator import eval_device
 from mmidet_tpu_torch.nn.quant import make_quant_deploy
 from mmidet_tpu_torch.ops.nms import non_max_suppression
+from mmidet_tpu_torch.parallel.mesh import default_devices, shard_inference
 
 
 def _preprocess(img_bytes: bytes, s: int):
@@ -115,9 +116,11 @@ class BatchingService:
     enters inference mode itself (both are per thread).  An error in a
     batch reaches every waiter of that batch.  ``close()`` ends the
     thread.  The default device is the card; without CUDA the constructor
-    raises unless ``device="cpu"``.  Serving over several cards (the JAX
-    package's data-axis mesh) waits for ROADMAP A13: ``devices`` with more
-    than one entry raises.
+    raises unless ``device="cpu"``.  ``devices`` with more than one entry
+    and ``max_batch`` divisible by their count (JAX :116) serve each batch
+    over a replica of the model on every entry
+    (``parallel.mesh.shard_inference``), the first entry holding the
+    staging copy and the NMS; otherwise one device serves it.
 
     ``batch_log`` holds (requests, seconds of forward + NMS and copies) per
     batch the dispatcher ran, for measurement."""
@@ -126,15 +129,14 @@ class BatchingService:
                  conf_thres: float = 0.25, iou_thres: float = 0.45,
                  max_batch: int = 8, max_wait_ms: float = 5.0,
                  device: str | torch.device = "cuda", devices=None):
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "BatchingService over several devices (data-parallel "
-                "serving) is not ported yet (ROADMAP A13)")
-        self.device = eval_device(device)
+        devices = [eval_device(d) for d in devices or ()]
+        shard = len(devices) > 1 and max_batch % len(devices) == 0
+        self.device = devices[0] if shard else eval_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the dispatcher thread binds this device by its index
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.model = model.to(self.device).eval()
+        self.model = shard_inference(model.eval(), devices) if shard else \
+            model.to(self.device).eval()
         self.names = names
         self.img_size = img_size
         self.conf_thres, self.iou_thres = conf_thres, iou_thres
@@ -377,8 +379,10 @@ def main(argv=None, device="cuda"):
     if args.no_batching:
         service = DetectionService(model, names, **kw)
     else:
+        # JAX serve.py: a batch over every attached device when divisible
         service = BatchingService(model, names, max_batch=args.max_batch,
-                                  max_wait_ms=args.max_wait_ms, **kw)
+                                  max_wait_ms=args.max_wait_ms,
+                                  devices=default_devices(device), **kw)
     serve(service, args.host, args.port)
     return service
 

@@ -23,6 +23,7 @@ from mmidet_tpu_torch.eval.metrics import (ConfusionMatrix, ap_per_class,
 from mmidet_tpu_torch.models.tta import forward_tta
 from mmidet_tpu_torch.ops.boxes import scale_coords
 from mmidet_tpu_torch.ops.nms import non_max_suppression
+from mmidet_tpu_torch.parallel.mesh import default_devices, shard_inference
 
 
 @dataclasses.dataclass
@@ -91,12 +92,18 @@ def evaluate(model, loader, nc: int,
              save_conf: bool = False,
              save_hybrid: bool = False,
              merge: bool = False,
-             device: str | torch.device = "cuda") -> EvalResults:
+             device: str | torch.device = "cuda",
+             shard: bool = True, devices=None) -> EvalResults:
     """The JAX package's ``evaluate`` without ``variables``: the weights
     live in ``model``, an ``nn.Module`` that is moved to ``device`` (the
     card by default; without CUDA this raises unless ``device="cpu"``)
-    and put in eval mode.  ``shard``/``devices`` (the JAX package's
-    data-parallel eval) are not taken: one card runs the batch.
+    and put in eval mode.  With ``shard`` and more than one entry in
+    ``devices`` (default: every visible card for a bare ``"cuda"``) the
+    batch is split over a replica of the model on each entry
+    (``parallel.mesh.shard_inference``; a ragged batch padded to a
+    multiple of their count, JAX :134-170) and the predictions gathered on
+    the first: the forward has no cross-example math, so the records are
+    one device's.
 
     ``save_json``: COCO-format detection dump (ref test.py --save-json).
     ``confusion_dir``: an IoU-matched confusion matrix (ref test.py
@@ -111,7 +118,12 @@ def evaluate(model, loader, nc: int,
     host-to-card copy to detections on the host, after
     ``torch.cuda.synchronize()``."""
     dev = eval_device(device)
-    model = model.to(dev).eval()
+    devs = default_devices(dev) if devices is None else \
+        [eval_device(d) for d in devices]
+    if shard and len(devs) > 1:
+        model, dev = shard_inference(model.eval(), devs), devs[0]
+    else:
+        model = model.to(dev).eval()
     iouv = np.linspace(0.5, 0.95, 10)
     json_records = []
     cls_map = coco80_to_coco91_class() if coco91 else None

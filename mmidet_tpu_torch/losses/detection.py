@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from mmidet_tpu_torch.ops.boxes import bbox_iou
+from mmidet_tpu_torch.parallel import comm
 
 # duplicate-cell objectness: "last" is the reference's last write
 # (loss.py:249); "max" lets every valid candidate compete and the largest
@@ -162,7 +163,7 @@ def _scatter_max(size: int, index: torch.Tensor, src: torch.Tensor
 def compute_loss(train_outs: Sequence[torch.Tensor], targets: torch.Tensor,
                  target_mask: torch.Tensor, anchors: torch.Tensor,
                  hyp: LossHyp = LossHyp(), combine_loss=None,
-                 balance: Sequence[float] | None = None):
+                 balance: Sequence[float] | None = None, group=None):
     """YOLOv5 + Info-Guided loss. Ref: ComputeLoss.__call__
     (loss.py:113-184).
 
@@ -173,13 +174,19 @@ def compute_loss(train_outs: Sequence[torch.Tensor], targets: torch.Tensor,
     (loss.py:161-175).
 
     Returns (total, metrics of 0-dim tensors); ``total`` carries the
-    reference's ``* batch_size``.  Everything is computed in f32."""
+    reference's ``* batch_size``.  Everything is computed in f32.
+
+    ``group`` (a ``parallel.comm.DataGroup``): the inputs are this rank's
+    rows of a global batch, and the loss is the global batch's, the same
+    on every rank: the matched-candidate counts, the objectness mean and
+    the batch size are summed over the data group (with autograd)."""
     if balance is None:
         # reference per-level objectness balance (loss.py:106)
         balance = {3: (4.0, 1.0, 0.4)}.get(
             len(train_outs), (4.0, 1.0, 0.25, 0.06, 0.02)[:len(train_outs)])
     nc = train_outs[0].shape[-1] - 5
-    bsz = train_outs[0].shape[0]
+    bsz = train_outs[0].shape[0] if group is None else group.total
+    pg = None if group is None else group.group
     dev = train_outs[0].device
     cp, cn = smooth_bce(hyp.label_smoothing)
     targets = targets.float()
@@ -195,7 +202,10 @@ def compute_loss(train_outs: Sequence[torch.Tensor], targets: torch.Tensor,
                                 hyp.anchor_t)
         valid = cand["valid"].reshape(-1)
         w = valid.float()
-        n = w.sum().clamp(min=1.0)
+        if group is None:
+            n = w.sum().clamp(min=1.0)
+        else:
+            n = comm.global_sum([w.sum()], pg)[0].clamp(min=1.0)
 
         # linear index into the flattened (B, na, ny, nx) grid
         lin = (((cand["b"] * na + cand["a"]) * ny + cand["gj"]) * nx
@@ -210,7 +220,10 @@ def compute_loss(train_outs: Sequence[torch.Tensor], targets: torch.Tensor,
         tbox = torch.cat([cand["txy"].reshape(-1, 2),
                           cand["twh"].reshape(-1, 2)], -1)
         iou = bbox_iou(pbox, tbox, xywh=True, CIoU=True)
-        lbox = lbox + ((1.0 - iou) * w).sum() / n
+        box_sum = ((1.0 - iou) * w).sum()
+        if group is not None:
+            box_sum, = comm.global_sum([box_sum], pg)
+        lbox = lbox + box_sum / n
 
         # objectness target: the last write on duplicate cells, by an int
         # scatter-max of the write order, then the winners' values
@@ -230,7 +243,11 @@ def compute_loss(train_outs: Sequence[torch.Tensor], targets: torch.Tensor,
         if hyp.fl_gamma > 0:
             obj_bce = focal_modulation(flat[:, 4], tobj, obj_bce,
                                        hyp.fl_gamma)
-        lobj = lobj + obj_bce.mean() * balance[i]
+        if group is None:
+            lobj = lobj + obj_bce.mean() * balance[i]
+        else:
+            obj_sum, = comm.global_sum([obj_bce.sum()], pg)
+            lobj = lobj + obj_sum / (bsz * cells // b_) * balance[i]
 
         if nc > 1:
             tcl = (cand["tcls"].reshape(-1, 1)
@@ -240,7 +257,10 @@ def compute_loss(train_outs: Sequence[torch.Tensor], targets: torch.Tensor,
             if hyp.fl_gamma > 0:
                 cls_bce = focal_modulation(ps[:, 5:], tcl, cls_bce,
                                            hyp.fl_gamma)
-            lcls = lcls + (cls_bce.mean(-1) * w).sum() / n
+            cls_sum = (cls_bce.mean(-1) * w).sum()
+            if group is not None:
+                cls_sum, = comm.global_sum([cls_sum], pg)
+            lcls = lcls + cls_sum / n
 
     lbox = lbox * hyp.box
     lobj = lobj * hyp.obj

@@ -66,6 +66,7 @@ from mmidet_tpu_torch.nn.fusion import (CrossModalTransformer,
 from mmidet_tpu_torch.nn.mamba import MambaFusion
 from mmidet_tpu_torch.nn.quant import deq_tree
 from mmidet_tpu_torch.nn.resize import bilinear_resize, nearest_upsample
+from mmidet_tpu_torch.parallel import comm
 
 AUX_WEIGHTS = (0.1, 1.0, 0.06, 0.03)  # a1..a4, yolo_test.py:170-178
 _PARAMETER_FREE = {"Concat", "Add", "Add2", "Upsample", "nn.Upsample",
@@ -240,9 +241,10 @@ class TwoStreamDetector(nn.Module):
                 x = list(mod(inp[0], inp[1]))
             elif m in _FUSION:
                 fourier = m == "GPT1_fourier"
+                group = comm.active()   # a data-parallel step's, or None
                 if self.aux_mode != "off" and fourier:
                     aux["contrastive"] = fusion_losses.contrastive_loss(
-                        inp[0], inp[1])
+                        inp[0], inp[1], group=group)
                 out = mod(inp[0], inp[1])
                 x = list(out[:2])
                 if mod.merge_kernel and not mod.training:
@@ -252,10 +254,10 @@ class TwoStreamDetector(nn.Module):
                     if fourier:
                         fused = (x[0] + x[1]) / 2.0
                         aux["ssim"] = fusion_losses.fusing_loss(
-                            inp[0], inp[1], fused, fused)
+                            inp[0], inp[1], fused, fused, group=group)
                         if self.aux_mode == "full":
                             aux["entropy"] = fusion_losses.entropy_loss(
-                                inp[0], inp[1], fused)
+                                inp[0], inp[1], fused, group=group)
             elif m == "Detect":
                 train_outs, pred = mod(inp, decode=not self.training)
                 if "ssim" in aux:  # Combine loss (yolo_test.py:263-268)

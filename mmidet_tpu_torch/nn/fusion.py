@@ -16,7 +16,8 @@ up with the reference checkpoint and with the JAX variables (whose
 ``trans`` and ``pattern`` scopes are flat in the reference).  Dropout sits
 where the reference and the JAX package put it (on the embedded tokens,
 the attention weights, the attention output and the MLP output, all 0.1)
-as ``nn.Dropout`` modules, so
+as ``Dropout`` modules (``nn.Dropout``, which draws the global batch's
+masks in a data-parallel step), so
 ``.eval()`` turns it off and a test can set ``p = 0``; ``.train()`` is the
 JAX package's ``train=True``.  Tensors are NCHW.
 """
@@ -36,6 +37,7 @@ from mmidet_tpu_torch.nn.resize import adaptive_avg_pool, bilinear_resize
 from mmidet_tpu_torch.nn.transformer_cuda import (fused_token_transformer,
                                                   prepare_stack,
                                                   stack_block_params)
+from mmidet_tpu_torch.parallel import comm
 
 LN_EPS = 1e-5  # torch LayerNorm default, as the reference
 DROP = 0.1     # embd_pdrop, attn_pdrop, resid_pdrop of the reference's GPT
@@ -77,12 +79,34 @@ def frequency_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return back(low_keep), back(high_keep)
 
 
-def separation_loss(m: torch.Tensor) -> torch.Tensor:
+def separation_loss(m: torch.Tensor, group=None) -> torch.Tensor:
     """sum_{i<j} <m_i, m_j> / (l*(l-1)) over the rows of m (l, d), in the
-    closed form (|sum_i m_i|^2 - sum_i |m_i|^2) / 2.  Ref: common.py:128."""
-    l = m.shape[0]
-    s = m.sum(0)
-    return (torch.dot(s, s) - (m * m).sum()) / 2.0 / (l * (l - 1))
+    closed form (|sum_i m_i|^2 - sum_i |m_i|^2) / 2.  Ref: common.py:128.
+    ``group``: a ``comm.DataGroup`` whose ranks hold the rows between
+    them."""
+    if group is None:
+        l = m.shape[0]
+        s = m.sum(0)
+        return (torch.dot(s, s) - (m * m).sum()) / 2.0 / (l * (l - 1))
+    s, q, l = comm.global_sum([m.sum(0), (m * m).sum(),
+                               m.new_full((1,), m.shape[0])], group.group)
+    return ((torch.dot(s, s) - q) / 2.0 / (l * (l - 1))).reshape(())
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout``; inside a data-parallel step (``comm.data_group``)
+    every rank draws the mask of the whole global batch from the step's
+    generator and keeps its rows, so that the masks are the global batch's
+    on any mesh."""
+
+    def forward(self, x):
+        g = comm.active()
+        if g is None or not self.training or self.p == 0:
+            return super().forward(x)
+        keep = torch.empty((g.total,) + tuple(x.shape[1:]), device=x.device)
+        keep = keep.bernoulli_(1.0 - self.p, generator=g.gen)
+        keep = keep[g.offset:g.offset + x.shape[0]]
+        return x * (keep / (1.0 - self.p)).to(x.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -97,8 +121,8 @@ class SelfAttention(nn.Module):
         self.key_proj = nn.Linear(d_model, d_model)
         self.val_proj = nn.Linear(d_model, d_model)
         self.out_proj = nn.Linear(d_model, d_model)
-        self.attn_drop = nn.Dropout(DROP)
-        self.resid_drop = nn.Dropout(DROP)
+        self.attn_drop = Dropout(DROP)
+        self.resid_drop = Dropout(DROP)
 
     def forward(self, x):
         b, n, c = x.shape
@@ -125,7 +149,7 @@ class PreLNBlock(nn.Module):
         self.mlp = nn.Sequential(nn.Linear(d_model, block_exp * d_model),
                                  nn.GELU(),
                                  nn.Linear(block_exp * d_model, d_model),
-                                 nn.Dropout(DROP))
+                                 Dropout(DROP))
 
     def forward(self, x):
         x = x + self.sa(self.ln_input(x))
@@ -158,7 +182,7 @@ class _TokenTransformer(nn.Module):
         self._stack, self._stack_key = None, None
         self.pos_emb = nn.Parameter(
             torch.zeros(1, 2 * grid[0] * grid[1], d_model))
-        self.drop = nn.Dropout(DROP)
+        self.drop = Dropout(DROP)
         self.trans_blocks = nn.Sequential(*[
             PreLNBlock(d_model, num_heads, block_exp) for _ in range(n_layer)])
         self.ln_f = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -275,13 +299,17 @@ class PatternFusion(_TokenTransformer):
         pattern_loss = rgb.new_zeros(())
         if self.with_loss:
             rows = [_mask_rows(rgb_m), _mask_rows(ir_m)]
+            g = comm.active()
             if self.fourier:
                 # the high-frequency branch feeds only the separation loss:
                 # the first B rows of each of its masks (len_fea_half =
-                # B*8 // 8, common.py:487)
-                rows += [_mask_rows(self.mask(frequency_split(p)[1] * p))[:b]
-                         for p in (rgb_p, ir_p)]
-            pattern_loss = separation_loss(torch.cat(rows, 0))
+                # B*8 // 8, common.py:487), B and the rows the global
+                # batch's in a data-parallel step
+                first = b if g is None else \
+                    min(max(g.total - 8 * g.offset, 0), 8 * b)
+                rows += [_mask_rows(self.mask(frequency_split(p)[1] * p))[
+                    :first] for p in (rgb_p, ir_p)]
+            pattern_loss = separation_loss(torch.cat(rows, 0), g)
         rgb_o, ir_o = super().forward(self.conv2(rgb_m) * rgb_p,
                                       self.conv2(ir_m) * ir_p)
         return (bilinear_resize(rgb_o, (h, w)), bilinear_resize(ir_o, (h, w)),

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmidet_tpu_torch.nn.quant import QTensor, dequantize, quantize
+from mmidet_tpu_torch.parallel import comm
 
 # YOLOv5's BatchNorm settings (reference utils/torch_utils.py
 # initialize_weights): eps 1e-3, torch momentum 0.03
@@ -88,24 +89,51 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     ``update_stats = False`` normalises by the batch as above and leaves
     the running buffers as they are: the train step's recomputation of the
-    forward under ``remat`` sets it, so that a step updates them once."""
+    forward under ``remat`` sets it, so that a step updates them once.
+
+    Inside a data-parallel step (``parallel.comm.data_group``) the batch
+    statistics are the global batch's, as under the JAX package's GSPMD:
+    the sum, the sum of squares and the count of every rank's rows are
+    all-reduced over the data group (with autograd), then the sum of
+    squares about that mean (in f32, f64 for an f64 input), and the
+    running buffers take the same update from them."""
 
     update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        g = comm.active()
+        if g is not None:
+            y, mean, var = self._global_batch(x, g.group)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
         if not self.update_stats:
             return y
         with torch.no_grad():
+            if var is None:
+                var = invstd.pow(-2) - self.eps
             m = self.momentum  # flax: 0.97 * running + 0.03 * batch
             self.running_mean.mul_(1.0 - m).add_(m * mean)
-            self.running_var.mul_(1.0 - m).add_(
-                m * (invstd.pow(-2) - self.eps))
+            self.running_var.mul_(1.0 - m).add_(m * var)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch(self, x, group):
+        """(y, mean, biased var) over the rows of every rank in ``group``."""
+        xf = x if x.dtype == torch.float64 else x.float()
+        c = xf.shape[1]
+        s, n = comm.global_sum([xf.sum((0, 2, 3)),
+                                xf.new_full((1,), xf.numel() // c)], group)
+        mean = s / n
+        d = xf - mean[None, :, None, None]
+        var, = comm.global_sum([(d * d).sum((0, 2, 3))], group)
+        var = var / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = d * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 def batchnorm(c: int) -> BatchNorm2d:

@@ -25,6 +25,14 @@ recomputation with the backward.  So on this port ``remat`` saves no
 memory and only costs time (an H100 measured 3.0x the plain micro-step
 for "full" and 4.2x for "dots", the same peak); it is kept so that the
 JAX package's setting trains alike.
+
+``mesh`` (``parallel.mesh.Mesh``): ``step(state, batch, group)`` runs
+this rank's rows of the global batch inside their data group (``group``, a
+``parallel.comm.DataGroup``; None: the batch is whole on every rank), so
+that BatchNorm's statistics, the dropout masks and the losses are the
+global batch's; before each optimizer step the summed gradients are
+averaged over the data group (the reference's DDP all-reduce, here on the
+optimizer steps only, as DDP's ``no_sync`` does between them).
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from torch.utils import checkpoint as ckpt
 
 from mmidet_tpu_torch.losses.detection import LossHyp, compute_loss
 from mmidet_tpu_torch.nn.layers import BatchNorm2d
+from mmidet_tpu_torch.parallel import comm
+from mmidet_tpu_torch.parallel.mesh import average_gradients
 from mmidet_tpu_torch.train.ema import ModelEMA
 from mmidet_tpu_torch.train.optimizer import GroupedOptimizer
 
@@ -71,12 +81,16 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 @contextlib.contextmanager
-def _recompute(model: nn.Module, inner):
+def _recompute(model: nn.Module, inner, gen=None, gen_state=None):
     """``inner``, with ``model``'s BatchNorms leaving their running
-    buffers alone."""
+    buffers alone, and ``gen`` (a data-parallel step's dropout generator)
+    back at ``gen_state``, so that the recomputation draws the masks
+    again."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     for m in bns:
         m.update_stats = False
+    if gen is not None:
+        gen.set_state(gen_state)
     try:
         with inner:
             yield
@@ -85,18 +99,20 @@ def _recompute(model: nn.Module, inner):
             m.update_stats = True
 
 
-def _remat_contexts(model: nn.Module, remat: str):
+def _remat_contexts(model: nn.Module, remat: str, gen=None):
+    gen_state = None if gen is None else gen.get_state()
+
     def contexts():
         fwd, rec = (ckpt.create_selective_checkpoint_contexts(_dots_policy)
                     if remat == "dots" else
                     (contextlib.nullcontext(), contextlib.nullcontext()))
-        return fwd, _recompute(model, rec)
+        return fwd, _recompute(model, rec, gen, gen_state)
     return contexts
 
 
 def make_train_step(anchors: torch.Tensor, hyp: LossHyp = LossHyp(),
                     two_stream: bool = True, dtype: str = "float32",
-                    remat: str = ""):
+                    remat: str = "", mesh=None):
     """Build ``step(state, batch) -> metrics``.
 
     batch: dict with 'rgb' (B, H, W, 3) and 'ir' [two-stream] in [0, 1],
@@ -116,22 +132,29 @@ def make_train_step(anchors: torch.Tensor, hyp: LossHyp = LossHyp(),
                             enabled=dtype == "bfloat16"):
             return model(rgb, ir)
 
-    def step(state: TrainState, batch: dict) -> dict:
+    def step(state: TrainState, batch: dict, group=None) -> dict:
         model = state.model.train()
         dev = batch["rgb"].device
         args = (model, batch["rgb"], batch["ir"] if two_stream else None)
-        if remat:
-            out = ckpt.checkpoint(
-                forward, *args, use_reentrant=False,
-                context_fn=_remat_contexts(model, remat))
-        else:
-            out = forward(*args)
-        total, metrics = compute_loss(
-            out["train_outs"], batch["targets"], batch["mask"],
-            anchors.to(dev), hyp, combine_loss=out["aux"].get("combine"))
-        total.backward()
+        if mesh is not None and group is None:
+            group = mesh.whole(batch["rgb"].shape[0])
+        with comm.data_group(group):
+            if remat:
+                out = ckpt.checkpoint(
+                    forward, *args, use_reentrant=False,
+                    context_fn=_remat_contexts(
+                        model, remat, None if group is None else group.gen))
+            else:
+                out = forward(*args)
+            total, metrics = compute_loss(
+                out["train_outs"], batch["targets"], batch["mask"],
+                anchors.to(dev), hyp, combine_loss=out["aux"].get("combine"),
+                group=group)
+            total.backward()
         state.micro_step += 1
         if state.micro_step % state.optimizer.accumulate == 0:
+            if mesh is not None:
+                average_gradients(model, mesh)
             state.optimizer.step(state.opt_step)
             state.opt_step += 1
             state.ema.update(model)

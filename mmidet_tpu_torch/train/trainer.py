@@ -36,8 +36,24 @@ options version the dataset, the checkpoints and the val predictions in
 each evaluation (:773-775).
 
 ``train(cfg, device="cuda")`` runs on the card; without CUDA it raises
-unless ``device="cpu"``.  The data-parallel options (``mesh="on"``,
-``n_model``) raise ``NotImplementedError`` naming ROADMAP A13.
+unless ``device="cpu"``.
+
+The mesh follows the JAX trainer (:269-298, ``setup_mesh``): over
+``devices`` (every visible card for a bare ``"cuda"``, one device for
+an indexed one or the CPU; ``["cpu"] * 4`` or
+``["cuda:0"] * 2`` name one device more than once) a ``data`` x ``model``
+mesh, one process a rank (``parallel/launch.py``: NCCL when every rank has
+a card of its own, gloo otherwise), its data axis clamped to a divisor of
+the batch.  Each rank decodes its rows of every global batch, makes the
+augmentation's draws for the whole batch and keeps its rows; a ragged
+batch runs whole on every rank.  The step's BatchNorm statistics, dropout
+masks and losses are the global batch's (``parallel/comm.py``), so the run
+gives what one process gives on the same batches up to the order of float
+sums.  ``n_model`` > 1 shards the wide layers' out channels
+(``tp_min_out``).  Rank 0 alone evaluates, logs, plots and writes
+checkpoints, which hold whole tensors: a mesh run resumes on one process
+and the other way round.  ``train`` returns rank 0's result, with whole
+weights.
 """
 
 from __future__ import annotations
@@ -62,6 +78,9 @@ from mmidet_tpu_torch.losses.detection import LossHyp
 from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.spec import is_two_stream, load_yolo_yaml
 from mmidet_tpu_torch.models.zoo import get_model_spec
+from mmidet_tpu_torch.parallel.mesh import (batch_rows, default_devices,
+                                            make_mesh, shard_train_state,
+                                            unshard_train_state)
 from mmidet_tpu_torch.train.checkpoint import (checkpoints,
                                                restore_checkpoint,
                                                save_checkpoint,
@@ -77,12 +96,11 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` but ``fused_loop`` (the port runs
-    the two-dispatch order) and ``tp_min_out``, which only qualifies
-    ``n_model``.  Fields marked "not ported" raise when set away from
-    their default."""
+    the two-dispatch order)."""
     model: str = "yolov5l_fuse3_fourier"   # zoo name or YAML path
-    mesh: str = "auto"   # 'auto': one device here; 'on': not ported (A13)
-    n_model: int = 1     # tensor parallelism: not ported (A13)
+    mesh: str = "auto"   # 'auto'/'on': over the devices; 'off': one
+    n_model: int = 1     # tensor parallelism: the mesh's model axis
+    tp_min_out: int = 256  # shard layers with this many out channels
     data: str = ""                         # dataset YAML path
     hyp: str | dict = ""                   # hyp YAML path or dict
     epochs: int = 100
@@ -167,16 +185,31 @@ def load_hyp(hyp) -> dict:
     return dict(DEFAULT_HYP)
 
 
-def unported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for an option this port does not run
-    yet, naming its ROADMAP item."""
-    checks = [
-        (cfg.mesh == "on" or cfg.n_model > 1, "the mesh/n_model modes "
-         "(DDP)", "A13")]
-    for hit, what, item in checks:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                      f"{item})")
+def setup_mesh(cfg: TrainConfig, devices=None) -> tuple[int, int] | None:
+    """The ('data', 'model') mesh's shape over ``devices`` (every visible
+    card by default), or None for one process: the JAX trainer's rules
+    (:269-298).  ``mesh="off"``, or one device with ``n_model == 1``, is no
+    mesh; ``n_model`` beyond the devices raises; the data axis is clamped
+    to the largest divisor of ``batch_size`` (the reference asserts batch
+    % world_size == 0 for DDP, train.py:992-996)."""
+    devices = list(default_devices() if devices is None else devices)
+    n_model = max(int(cfg.n_model), 1)
+    if cfg.mesh == "off" or (len(devices) == 1 and n_model == 1):
+        return None
+    if n_model > len(devices):
+        raise ValueError(f"n_model={n_model} > {len(devices)} devices")
+    n_data = len(devices) // n_model
+    while cfg.batch_size % n_data:
+        n_data -= 1
+    if n_data * n_model == 1:
+        return None
+    if n_data < len(devices) // n_model:
+        logger.warning(
+            "mesh: data axis clamped to %d (batch %d not divisible by %d)",
+            n_data, cfg.batch_size, len(devices) // n_model)
+    logger.info("mesh: data=%d x model=%d over %d devices", n_data,
+                n_model, len(devices))
+    return n_data, n_model
 
 
 def multi_scale_sizes(img_size: int, gs: int, buckets: int) -> np.ndarray:
@@ -299,13 +332,56 @@ def eval_model_for(spec, use_cem: bool, dtype: str) -> TwoStreamDetector:
                     else torch.float32).eval()
 
 
-def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
+def train(cfg: TrainConfig, device: str | torch.device = "cuda",
+          devices=None) -> dict:
     """Run training; returns a summary dict (workdir, best fitness, the
-    deploy state dict, the train state, the last results)."""
+    deploy state dict, the train state, the last results, the mesh).
+    ``devices``: the mesh's devices (default: every visible card for a
+    bare ``"cuda"``, else ``[device]``); the run is one process when
+    ``setup_mesh`` makes no mesh of them."""
+    dev = eval_device(device if devices is None else devices[0])
+    devices = default_devices(dev) if devices is None else \
+        [eval_device(d) for d in devices]
+    shape = setup_mesh(cfg, devices)   # its errors before any write
+    prep = _prepare(cfg)
+    if prep[0].batch_size != cfg.batch_size:   # a resumed run's
+        shape = setup_mesh(prep[0], devices)
+    if shape is None:
+        return _train(*prep, dev=dev)
+    return _launch(prep, devices, *shape)
+
+
+def train_mesh(cfg: TrainConfig, devices, n_data: int,
+               n_model: int = 1) -> dict:
+    """``train`` on an ``n_data`` x ``n_model`` mesh of ``devices`` as
+    given, one rank a device, without ``setup_mesh``'s rules: a mesh of
+    one rank (NCCL at world size 1 on a card) included."""
+    devices = [eval_device(d) for d in devices]
+    return _launch(_prepare(cfg), devices, n_data, n_model)
+
+
+def _launch(prep: tuple, devices: list, n_data: int, n_model: int) -> dict:
+    from mmidet_tpu_torch.parallel.launch import launch
+    cfg, hyp, data, workdir, resume_src, art_backend = prep
+    devices = devices[:n_data * n_model]
+    return launch(_train_rank, (cfg, hyp, data, workdir, resume_src,
+                                devices, n_data, n_model),
+                  devices, workdir, local_kwargs={"art_backend": art_backend})
+
+
+def _train_rank(cfg, hyp, data, workdir, resume_src, devices, n_data,
+                n_model, art_backend=None) -> dict:
+    mesh = make_mesh(n_data, n_model, devices)
+    return _train(cfg, hyp, data, workdir, resume_src, art_backend,
+                  dev=mesh.device, mesh=mesh)
+
+
+def _prepare(cfg: TrainConfig) -> tuple:
+    """The run's config, hyp, dataset dict, workdir, checkpoint to resume
+    from and artifact store, with ``hyp.yaml`` and ``opt.yaml`` written
+    (once, before any rank starts)."""
     import yaml
-    dev = eval_device(device)
     hyp = load_hyp(cfg.hyp)
-    unported(cfg)
     from mmidet_tpu_torch.utils.artifacts import (default_backend,
                                                   is_artifact_path,
                                                   log_dataset_artifact,
@@ -329,11 +405,6 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
             hyp = load_hyp(cfg.hyp)
         cfg = dataclasses.replace(cfg, resume=r)
     cfg, hyp, workdir, resume_src = _resolve_run(cfg, hyp)
-    unported(cfg)
-    if cfg.mesh == "auto" and dev.type == "cuda" and \
-            torch.cuda.device_count() > 1:
-        logger.warning("mesh 'auto': training on one card; data parallel "
-                       "over %d is ROADMAP A13", torch.cuda.device_count())
     if cfg.label_smoothing is not None:  # CLI override
         hyp["label_smoothing"] = float(cfg.label_smoothing)
     os.makedirs(workdir, exist_ok=True)
@@ -355,6 +426,33 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         data = resolve_data_artifacts(
             data, art_backend or default_backend(cfg.artifact_project),
             alias=cfg.artifact_alias)
+    return cfg, hyp, data, workdir, resume_src, art_backend
+
+
+def _barrier(mesh) -> None:
+    import torch.distributed as dist
+    if mesh.backend == "nccl":
+        dist.barrier(device_ids=[mesh.device.index])
+    else:
+        dist.barrier()
+
+
+def _from_rank0(mesh, obj):
+    """Rank 0's ``obj`` on every rank of the mesh."""
+    if mesh is None:
+        return obj
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _train(cfg: TrainConfig, hyp: dict, data: dict, workdir: str,
+           resume_src: str | None, art_backend, dev: torch.device,
+           mesh=None) -> dict:
+    """One process's run: the whole run, or one rank's share of a mesh
+    run (``mesh``); rank 0 (``lead``) alone evaluates, logs and saves."""
+    lead = mesh is None or mesh.rank == 0
     nc = 1 if cfg.single_cls else int(data["nc"])
     names = ["item"] if cfg.single_cls else \
         data.get("names", [str(i) for i in range(nc)])
@@ -362,6 +460,8 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     spec = _spec_from_cfg(cfg, nc)
 
     datasets = {}
+    if mesh is not None and not lead:
+        _barrier(mesh)  # rank 0 writes the label caches first
     for split in ("train", "val"):
         ds = PairedDataset(data[f"{split}_rgb"], data[f"{split}_ir"],
                            nc=None if cfg.single_cls else nc,
@@ -372,9 +472,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                 if len(lab):
                     lab[:, 0] = 0.0
         datasets[split] = ds
+    if mesh is not None and lead:
+        _barrier(mesh)
     train_ds, val_ds = datasets["train"], datasets["val"]
 
-    if cfg.autoanchor:  # pre-training anchor fit check (train.py:678-679)
+    if cfg.autoanchor and lead:  # anchor fit check (train.py:678-679)
         from mmidet_tpu_torch.utils.autoanchor import check_anchors
         shapes = _shapes(train_ds, min(len(train_ds), 512))
         new_anchors = check_anchors(train_ds.labels[:len(shapes)], shapes,
@@ -385,6 +487,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         if flat != spec.anchors:
             logger.info("autoanchor updated anchors: %s", flat)
             spec = dataclasses.replace(spec, anchors=flat)
+    spec = _from_rank0(mesh, spec)
 
     two_stream = is_two_stream(spec)
     # single-stream models carry no CEM and no fusion aux losses
@@ -406,10 +509,14 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         logger.info("transferred %d/%d items from %s", n_cp, n_tot,
                     cfg.weights)
     model = model.to(dev)
-    eval_model = eval_model_for(spec, use_cem, cfg.dtype).to(dev)
+    eval_model = eval_model_for(spec, use_cem, cfg.dtype).to(dev) \
+        if lead else None
 
-    if cfg.quad and cfg.batch_size % 4:
-        raise ValueError("--quad needs --batch-size divisible by 4")
+    rows = None if mesh is None else batch_rows(mesh, cfg.batch_size)
+    if cfg.quad and (cfg.batch_size if rows is None
+                     else rows.stop - rows.start) % 4:
+        raise ValueError("--quad needs --batch-size divisible by 4 (on "
+                         "each data-parallel rank)")
     # rect disables mosaic, as the reference (datasets.py: mosaic = augment
     # and not rect)
     use_mosaic = (hyp.get("mosaic", 1.0) > 0 and cfg.mosaic_prob > 0
@@ -427,6 +534,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         loader = PairedLoader(train_ds, cfg.batch_size, img_size,
                               cfg.max_labels, shuffle=True, seed=cfg.seed,
                               prefetch=cfg.workers)
+    loader.rows = rows
     steps_per_epoch = max(len(loader), 1)
     sched, loss_hyp = build_sched_and_loss(cfg, hyp, steps_per_epoch)
     build = build_adam if cfg.adam else build_optimizer
@@ -437,7 +545,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
     state = init_state(model, optimizer, cfg.ema_decay)
     step_fn = make_train_step(anchors_grid(spec).to(dev), loss_hyp,
                               two_stream=two_stream, dtype=cfg.dtype,
-                              remat=cfg.remat)
+                              remat=cfg.remat, mesh=mesh)
     aug_hyp = AugmentHyp(**{k: hyp[k] for k in (
         "hsv_h", "hsv_s", "hsv_v", "degrees", "translate", "scale", "shear",
         "perspective", "flipud", "fliplr", "mosaic")})
@@ -469,23 +577,29 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
 
     from mmidet_tpu_torch.utils.logger import MetricLogger
     results_path = os.path.join(workdir, "results.txt")
-    mlog = MetricLogger(workdir, use_wandb=cfg.use_wandb,
-                        run_name=os.path.basename(workdir),
-                        config={**dataclasses.asdict(cfg),
-                                "freeze": list(cfg.freeze)},
-                        entity=cfg.entity or None)
-    try:  # optional: matplotlib may be missing
-        from mmidet_tpu_torch.utils.plots import plot_labels
-        plot_labels(train_ds.labels, nc, workdir)
-    except Exception:
-        pass
+    mlog = None
+    if lead:
+        mlog = MetricLogger(workdir, use_wandb=cfg.use_wandb,
+                            run_name=os.path.basename(workdir),
+                            config={**dataclasses.asdict(cfg),
+                                    "freeze": list(cfg.freeze)},
+                            entity=cfg.entity or None)
+        try:  # optional: matplotlib may be missing
+            from mmidet_tpu_torch.utils.plots import plot_labels
+            plot_labels(train_ds.labels, nc, workdir)
+        except Exception:
+            pass
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("model %s: %.2fM params, %d classes, %d train imgs, "
                 "%d epochs x %d steps, accumulate %d", cfg.model,
                 n_params / 1e6, nc, len(train_ds), cfg.epochs,
                 steps_per_epoch, optimizer.accumulate)
+    if mesh is not None:
+        # the global batch's dropout masks, the same on every rank
+        mesh.gen = torch.Generator(device=dev).manual_seed(cfg.seed + 3)
+        shard_train_state(state, mesh, cfg.tp_min_out)
 
-    plotted = 0
+    plotted = 0 if lead else 3
     res = None
     maps = np.zeros(nc)  # per-class mAP of the latest evaluation
 
@@ -518,11 +632,18 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
             for k in ("rgb", "ir", "rgb4", "ir4"):  # uint8 -> [0, 1] here
                 if k in jb:
                     jb[k] = jb[k].float() / 255.0
-            jb = augment(jb, gen)
+            # a rank's rows of a full batch take their rows of the draws
+            # made for the whole of it
+            split = batch.get("split", False)
+            jb = augment(jb, gen, rows if split else None,
+                         cfg.batch_size if split else None)
             if cfg.quad:
+                take = quad_draws((cfg.batch_size if split
+                                   else jb["rgb"].shape[0]) // 4, gen)
+                if split:
+                    take = take[rows.start // 4:rows.stop // 4]
                 jb = quad_batch(jb["rgb"], jb["ir"], jb["targets"],
-                                jb["mask"], quad_draws(
-                                    jb["rgb"].shape[0] // 4, gen))
+                                jb["mask"], take)
             if cfg.multi_scale:
                 # labels are normalized: only the images are resized
                 sz = int(ms_rng.choice(ms_sizes))
@@ -541,7 +662,12 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                 except Exception:
                     pass
                 plotted += 1
-            metrics = step_fn(state, jb)
+            if mesh is None:
+                metrics = step_fn(state, jb)
+            else:
+                b = jb["rgb"].shape[0]
+                metrics = step_fn(state, jb, mesh.split(b, b * mesh.n_data)
+                                  if split else None)
             loss_sum += torch.stack([metrics[k] for k in
                                      ("box", "obj", "cls", "aux")]).double()
             nb += 1
@@ -555,7 +681,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
         saved_this_epoch = False
         final = epoch == cfg.epochs - 1
         do_eval = (((epoch + 1) % cfg.eval_every == 0 or final)
-                   and (not cfg.notest or final))
+                   and (not cfg.notest or final) and lead)
+        if mesh is not None:  # whole tensors for the evaluation and saves
+            unshard_train_state(state)
         if do_eval:
             eval_model.load_state_dict(state.ema.state_dict())
             # the val predictions -> a "progress" evaluation artifact (ref
@@ -569,8 +697,8 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
             res = evaluate(eval_model, PairedLoader(
                 val_ds, cfg.batch_size, img_size, cfg.max_labels,
                 drop_last=False, prefetch=cfg.workers, scaleup=False),
-                nc, names=names, device=dev, save_json=pred_json,
-                media_dir=media_dir)
+                nc, names=names, device=dev, devices=[dev],
+                save_json=pred_json, media_dir=media_dir)
             if media_dir is not None and os.path.isdir(media_dir):
                 import glob
                 mlog.log_media_files(
@@ -627,7 +755,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                 cfg.epochs - 1, *mloss, res.map50, res.map, fit,
                 time.time() - t0)
         if cfg.save_period > 0 and (epoch + 1) % cfg.save_period == 0 \
-                and not saved_this_epoch:
+                and not saved_this_epoch and lead:
             # periodic save is independent of eval/nosave (ref save_period)
             save_checkpoint(ckpt_dir, state, epoch,
                             {"best_fitness": best_fit})
@@ -636,6 +764,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
             # every epoch, as the reference (train.py:715-727): the class
             # weights times (1 - maps)^2 of the latest evaluation; the
             # next epoch draws its images by them
+            maps = _from_rank0(mesh, maps)
             from mmidet_tpu_torch.utils.general import (
                 labels_to_class_weights, labels_to_image_weights)
             cw = labels_to_class_weights(train_ds.labels, nc)
@@ -643,13 +772,19 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                                          cw * (1 - maps) ** 2)
             if hasattr(loader, "set_image_weights") and iw.sum() > 0:
                 loader.set_image_weights(iw)
+        if mesh is not None:
+            _barrier(mesh)
+            shard_train_state(state, mesh, cfg.tp_min_out)
 
-    mlog.close()
-    try:  # optional: matplotlib may be missing
-        from mmidet_tpu_torch.utils.plots import plot_results
-        plot_results(results_path)
-    except Exception:
-        pass
+    if lead:
+        mlog.close()
+        try:  # optional: matplotlib may be missing
+            from mmidet_tpu_torch.utils.plots import plot_results
+            plot_results(results_path)
+        except Exception:
+            pass
+    if mesh is not None:
+        unshard_train_state(state)
     # deploy weights come from the BEST checkpoint when one was kept (the
     # reference strips best.pt for distribution, general.py:584-598)
     deploy = strip_for_deploy(state)
@@ -659,4 +794,6 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict:
                             weights_only=True)["ema"]
     return {"workdir": workdir, "best_fitness": best_fit, "deploy": deploy,
             "state": state, "last_results": res, "nc": nc, "names": names,
-            "spec": spec, "epochs": epochs_run}
+            "spec": spec, "epochs": epochs_run,
+            "mesh": None if mesh is None else {
+                **mesh.shape, "backend": mesh.backend}}

@@ -293,13 +293,15 @@ def test_train_cli_trains_with_mosaic_by_default(data_yaml, tmp_path,
 ])
 def test_train_cli_unported_options_raise(data_yaml, tmp_path, args, item,
                                          monkeypatch):
-    """The data-parallel options (A13) still raise; the A15 options are
-    ported: the CLI hands each to the trainer (``--evolve`` runs its
-    generations through it)."""
-    if item == "A13":
-        with pytest.raises(NotImplementedError, match=item):
+    """The A13 and A15 options are ported: the CLI hands each to the
+    trainer (``--evolve`` runs its generations through it); ``--n-model
+    2`` on the one CPU device is the JAX trainer's ``ValueError``
+    (``setup_mesh``), raised before anything is written."""
+    if args[-2:] == ["--n-model", "2"]:
+        with pytest.raises(ValueError, match="n_model=2 > 1 devices"):
             train.main(["--cfg", "yolov5s_add", "--data", data_yaml,
                         "--project", str(tmp_path), *args], device="cpu")
+        assert not (tmp_path / "exp").exists()
         return
     cfgs = []
     monkeypatch.setattr(train, "train", lambda cfg, device: cfgs.append(
@@ -317,5 +319,5 @@ def test_train_cli_unported_options_raise(data_yaml, tmp_path, args, item,
         return
     want = {"entity": "team", "artifact_alias": "v1",
             "resume": "wandb-artifact://p/run1", "bucket": "gs://b",
-            "bbox_interval": 1}.get(field, True)
+            "bbox_interval": 1, "mesh": "on"}.get(field, True)
     assert len(cfgs) == 1 and getattr(cfgs[0], field) == want

@@ -311,9 +311,9 @@ def test_tenth_slice_modules_are_covered_and_default_to_the_card(tmp_path):
     """The modules of the trainer's remaining options, the inference
     sources and the utils leftovers are among the files the import rule
     above reads; the trainer and the train CLI with those options (and
-    ``--evolve``) still run on the card unless asked for the CPU; only the
-    data-parallel options (A13) are left unported, and no port file
-    raises for ROADMAP A15 any more."""
+    ``--evolve``) still run on the card unless asked for the CPU; since
+    the data-parallel options (A13) are ported too, the trainer has no
+    ``unported`` check left and no port file names ROADMAP A13 or A15."""
     import inspect
 
     from mmidet_tpu_torch.cli import train as train_cli
@@ -325,10 +325,11 @@ def test_tenth_slice_modules_are_covered_and_default_to_the_card(tmp_path):
             "utils/profiler.py", "utils/gradcam.py", "utils/ds_fusion.py",
             "utils/downloads.py", "nn/aux_experimental.py",
             "bridge.py"} <= files
-    checks = inspect.getsource(trainer.unported)
-    assert '"A13"' in checks and "A15" not in checks
+    assert not hasattr(trainer, "unported")
+    assert "cfg.n_model" in inspect.getsource(trainer.setup_mesh)
     for f in sorted(port.rglob("*.py")):
-        assert "A15" not in f.read_text(), f
+        text = f.read_text()
+        assert "A15" not in text and "A13" not in text, f
     if not torch.cuda.is_available():
         cfg = trainer.TrainConfig(data="unused.yaml", mosaic_prob=0.0,
                                   image_weights=True, log_artifacts=True,

@@ -246,9 +246,14 @@ def test_error_reaches_every_waiter_and_close_ends_the_thread(stack):
 
 
 def test_service_refuses_several_devices_and_a_missing_card(stack):
-    with pytest.raises(NotImplementedError, match="A13"):
-        serve.BatchingService(stack["model"], NAMES, img_size=32,
-                              device="cpu", devices=["cpu", "cpu"])
+    """Several devices are served since A13: with ``max_batch`` divisible
+    by their count the model runs as one replica on each, else on one
+    (JAX ``serve.py:116``); without CUDA the default device is refused."""
+    for devs, sharded in ((["cpu", "cpu"], True), (["cpu"] * 3, False)):
+        svc = serve.BatchingService(stack["model"], NAMES, img_size=32,
+                                    device="cpu", devices=devs)
+        assert (type(svc.model).__name__ == "ShardedModel") == sharded
+        svc.close()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.BatchingService(stack["model"], NAMES, img_size=32)

@@ -495,15 +495,17 @@ def test_trainer_end_to_end_against_jax(data_yaml, tmp_path, add_pair,
 
 
 def test_unported_options_raise_naming_their_roadmap_item(tmp_path):
-    """The data-parallel modes (A13) raise; the options ported since
-    (image weights, W&B, artifacts, the bucket upload, bbox media) get past
-    the check to the dataset YAML, which does not exist here."""
+    """The data-parallel modes (A13) are ported: ``n_model`` 2 on the one
+    CPU device is the JAX trainer's ``ValueError`` (``setup_mesh``), and
+    ``mesh="on"`` there is one process, which gets past the check to the
+    dataset YAML, as do the options ported before (image weights, W&B,
+    artifacts, the bucket upload, bbox media); the YAML does not exist
+    here."""
     base = trainer.TrainConfig(data=str(tmp_path / "unused.yaml"),
                                workdir=str(tmp_path / "x"))
-    for kw, item in (({"mesh": "on"}, "A13"), ({"n_model": 2}, "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            trainer.train(dataclasses.replace(base, **kw), device="cpu")
-    for kw in ({"image_weights": True}, {"use_wandb": True},
+    with pytest.raises(ValueError, match="n_model=2 > 1 devices"):
+        trainer.train(dataclasses.replace(base, n_model=2), device="cpu")
+    for kw in ({"mesh": "on"}, {"image_weights": True}, {"use_wandb": True},
                {"log_artifacts": True}, {"bucket": "gs://b"},
                {"bbox_interval": 1}):
         with pytest.raises(FileNotFoundError, match="unused.yaml"):
