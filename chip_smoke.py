@@ -123,7 +123,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      the same for yolov5s_gpt4 (K1 4); ``export_onnx`` of the flagship in
      f32 at 640, decoded back, and at 128 run through the numpy runner
      against the port's f32 forward on the card (``ONNX_TOL``); the export
-     CLI with ``--onnx`` on the checkpoint;
+     CLI with ``--onnx --savedmodel --tflite`` on the checkpoint: the
+     SavedModel (plain TF ops, ``deploy/tf_proto.py``) and the .tflite
+     (builtins only, ``deploy/tflite_fb.py``) of the flagship in f32 at
+     640, their export seconds, decoded back by the port's codecs (nodes,
+     op histograms, MB); both written again at 128 and run through
+     ``deploy/tf_np.py`` against the card's f32 forward through K3 and K4
+     (launches asserted: K3 1, K4 4) and its plain route (``ONNX_TOL``);
   17. ``mamba_path``: the mamba family at full width, yolov5x_mamba (four
      MambaFusion levels: pool to 8x8, forward and backward stacks of four
      Mamba layers over the 128 tokens of both streams, the selective scan
@@ -215,6 +221,7 @@ call behind a spin kernel so that only the card's time counts.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -2541,17 +2548,23 @@ def phase_export_path(torch, dev, card: str):
     the graph and in the launch counts, ``pred`` against the eager
     module's, NMS through K2, both timed in turns; the op's dispatch cost
     against the direct call for one K3 and one K4 call; (c) the same for
-    yolov5s_gpt4 (K1 four times); (e) ``deploy.export.main --onnx`` on
-    the checkpoint; (d) its ``model.onnx``, the flagship in f32 at 640,
-    decoded back (node and initializer counts), and ``export_onnx`` at 128
-    run through the numpy runner against the port's plain f32 forward on
-    the card."""
+    yolov5s_gpt4 (K1 four times); (e) ``deploy.export.main --onnx
+    --savedmodel --tflite`` on the checkpoint, the TF legs' seconds apart;
+    (d) its ``model.onnx``, the flagship in f32 at 640, decoded back (node
+    and initializer counts), and ``export_onnx`` at 128 run through the
+    numpy runner against the port's plain f32 forward on the card; (f) its
+    ``savedmodel/`` and ``model.tflite`` decoded back by the port's codecs
+    (nodes, the op histograms, every TFLite operator a builtin, MB), and
+    ``export_savedmodel`` + ``export_tflite`` at 128 run through ``tf_np``
+    against the card's f32 forward through K3 and K4 (launches asserted)
+    and against its plain route."""
     import shutil
 
     import numpy as np
 
     from mmidet_tpu_torch.cli import val
-    from mmidet_tpu_torch.deploy import export, onnx_np, onnx_proto
+    from mmidet_tpu_torch.deploy import (export, onnx_np, onnx_proto, tf_np,
+                                         tf_proto, tflite_fb)
     from mmidet_tpu_torch.deploy.onnx_export import export_onnx
     from mmidet_tpu_torch.models.zoo import get_model_spec
     from mmidet_tpu_torch.nn.fuse import fold_batchnorm
@@ -2604,20 +2617,64 @@ def phase_export_path(torch, dev, card: str):
         del gpt4
         torch.cuda.empty_cache()
         secs["gpt4"] = time.perf_counter() - t0
-        # (e) the export CLI on the checkpoint, with --onnx: its bundle's
-        # model.onnx is the flagship's ONNX graph at 640 in f32
+        # (e) the export CLI on the checkpoint, with --onnx, --savedmodel
+        # and --tflite: its bundle's model.onnx, savedmodel/ and
+        # model.tflite are the flagship's graphs at 640 in f32; the TF
+        # legs' entry points timed as the CLI calls them
         t0 = time.perf_counter()
         out = EXPORT_DATA / "bundle"
-        with contextlib.redirect_stdout(io.StringIO()) as said:
-            export.main(["--cfg", flagship, "--weights", path, "--out",
-                         str(out), "--onnx"], device=dev)
+        tf_secs = {}
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    tf_secs[key] = time.perf_counter() - t
+            return run
+        entry = export.export_savedmodel, export.export_tflite
+        export.export_savedmodel = timed(entry[0], "export_savedmodel")
+        export.export_tflite = timed(entry[1], "export_tflite")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                export.main(["--cfg", flagship, "--weights", path, "--out",
+                             str(out), "--onnx", "--savedmodel", "--tflite"],
+                            device=dev)
+        finally:
+            export.export_savedmodel, export.export_tflite = entry
         files = sorted(p.name for p in out.iterdir())
         rec["cli"] = {"files": files,
                       "said": said.getvalue().strip().splitlines()}
         secs["cli"] = time.perf_counter() - t0
-        if not {"model.json", "model.pt", "model.pt2",
-                "model.onnx"} <= set(files):
+        if not {"model.json", "model.pt", "model.pt2", "model.onnx",
+                "savedmodel", "savedmodel_graph",
+                "model.tflite"} <= set(files):
             raise AssertionError(f"export_path cli: {rec}")
+        # (f) the TF legs' files at 640 decoded back by the port's codecs
+        t0 = time.perf_counter()
+        body = tf_proto.load(str(out / "savedmodel")).serve_function()
+        lite = tflite_fb.load(str(out / "model.tflite"))
+        lite_ops = collections.Counter(
+            tflite_fb.BUILTIN_NAMES.get(lite.opcodes[o.opcode],
+                                        lite.opcodes[o.opcode])
+            for o in lite.operators)
+        rec["tf"] = {
+            "img": 640, "export_s": tf_secs,
+            "savedmodel_nodes": len(body.nodes),
+            "savedmodel_ops": dict(collections.Counter(
+                n.op for n in body.nodes).most_common()),
+            "savedmodel_mb": (out / "savedmodel" / "saved_model.pb")
+            .stat().st_size / 1e6,
+            "tflite_operators": len(lite.operators),
+            "tflite_tensors": len(lite.tensors),
+            "tflite_ops": dict(lite_ops.most_common()),
+            "tflite_mb": (out / "model.tflite").stat().st_size / 1e6,
+            "all_builtin": all(isinstance(k, str) for k in lite_ops)}
+        del body, lite
+        secs["tf_decode"] = time.perf_counter() - t0
+        if not rec["tf"]["all_builtin"]:
+            raise AssertionError(f"export_path tf: {rec['tf']}")
         # (d) the ONNX leg on the checkpoint's weights, f32: the graph at
         # 640 decoded back, and at 128 run in numpy against the card
         t0 = time.perf_counter()
@@ -2629,6 +2686,12 @@ def phase_export_path(torch, dev, card: str):
         export_onnx(spec, f32, ONNX_IMG, str(EXPORT_DATA / "small.onnx"))
         t_emit = time.perf_counter() - t1
         small = onnx_proto.Model.load(str(EXPORT_DATA / "small.onnx"))
+        t1 = time.perf_counter()
+        sm_small = export.export_savedmodel(str(EXPORT_DATA / "small_sm"),
+                                            f32, ONNX_IMG)
+        lite_small = export.export_tflite(sm_small, str(EXPORT_DATA /
+                                                        "small.tflite"))
+        t_tf_emit = time.perf_counter() - t1
         gen = torch.Generator().manual_seed(12)
         rgb, ir = (torch.rand(1, ONNX_IMG, ONNX_IMG, 3, generator=gen)
                    for _ in range(2))
@@ -2636,22 +2699,50 @@ def phase_export_path(torch, dev, card: str):
         got = onnx_np.run(small, {"rgb": rgb.permute(0, 3, 1, 2).numpy(),
                                   "ir": ir.permute(0, 3, 1, 2).numpy()})
         t_run = time.perf_counter() - t0
+        feeds = {"rgb": rgb.numpy(), "ir": ir.numpy()}
+        tf_runs, tf_run_s = {}, {}
+        for key, load in (("savedmodel", lambda: tf_proto.load(sm_small)),
+                          ("tflite", lambda: tflite_fb.load(lite_small))):
+            t1 = time.perf_counter()
+            tf_runs[key] = tf_np.run(load(), feeds)["output_0"]
+            tf_run_s[key] = time.perf_counter() - t1
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = f32.to(dev)
         with torch.inference_mode():
-            ref = f32.to(dev)(rgb.to(dev), ir.to(dev))["pred"].cpu().numpy()
-        err = float((np.abs(got["pred"] - ref)
-                     / np.maximum(1.0, np.abs(ref))).max())
+            ref = f32(rgb.to(dev), ir.to(dev))["pred"].cpu().numpy()
+            # the same f32 forward through K3 and K4
+            set_kernel_flags(f32, False, True, True)
+            zero_counts()
+            ref_k = f32(rgb.to(dev), ir.to(dev))["pred"].cpu().numpy()
+            tf_launches = read_counts(fused_cem=1, fused_gpt_merge=4)
+            set_kernel_flags(f32, False, False, False)
+
+        def rel(a, b) -> float:
+            return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+        err = rel(got["pred"], ref)
         rec["onnx"] = {
             "img": 640, "nodes": len(g640.graph.nodes),
             "initializers": len(g640.graph.initializers), "mb": onnx_mb,
             "run_img": ONNX_IMG, "emit_s": t_emit, "run_s": t_run,
             "max_rel_err": err, "tol": ONNX_TOL,
             "pred_shape": list(got["pred"].shape)}
+        rec["tf"].update({
+            "run_img": ONNX_IMG, "emit_s": t_tf_emit, "run_s": tf_run_s,
+            "max_rel_err": {f"{k}_vs_{route}": rel(v, want)
+                            for k, v in tf_runs.items()
+                            for route, want in (("kernels", ref_k),
+                                                ("plain", ref))},
+            "kernels_vs_plain": rel(ref_k, ref), "launches": {
+                k: v for k, v in tf_launches.items() if v},
+            "tol": ONNX_TOL})
         del f32, g640
         secs["onnx"] = time.perf_counter() - t0
         if err >= ONNX_TOL or got["pred"].shape != ref.shape:
             raise AssertionError(f"export_path onnx: {rec}")
+        if (max(rec["tf"]["max_rel_err"].values()) >= ONNX_TOL
+                or any(v.shape != ref.shape for v in tf_runs.values())):
+            raise AssertionError(f"export_path tf: {rec['tf']}")
     finally:
         sys.path[:] = [p for p in sys.path
                        if p != str(EXPORT_DATA / "reference")]
@@ -4331,6 +4422,8 @@ def main() -> int:
                           for k, r in hub_rec["runs"].items()},
          # the exported flagship program, loaded back: 1 a call
          "export_launches": exported["flagship"]["launches"]["fused_cem"],
+         # the f32 forward the SavedModel and TFLite files are held against
+         "tf_export_gate_launches": exported["tf"]["launches"]["fused_cem"],
          "sources_launches": sources["launches_timed"]["fused_cem"],
          # dp_path: one a shard, evaluate (both models) and
          # BatchingService over two entries of the card
@@ -4349,6 +4442,8 @@ def main() -> int:
          "int8_launches": int8["launches"]["fused_gpt_merge"],
          # the exported flagship program, loaded back: 4 a call
          "export_launches": exported["flagship"]["launches"][
+             "fused_gpt_merge"],
+         "tf_export_gate_launches": exported["tf"]["launches"][
              "fused_gpt_merge"],
          "sources_launches": sources["launches_timed"]["fused_gpt_merge"],
          "dp_eval_launches": dp["evaluate"]["yolov5l_fuse3_fourier"][

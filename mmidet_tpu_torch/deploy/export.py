@@ -20,8 +20,14 @@ Counterpart of ``mmidet_tpu/deploy/export.py`` (``export_stablehlo``,
   launches them; the graph ends at ``pred``, so K2 (NMS) is not in it.
 * ``--onnx``: the BN-folded model emitted as an ONNX graph, opset 17
   (``deploy/onnx_export.py``, no onnx package needed).
-* SavedModel and TFLite are not ported: the JAX package builds them with
-  ``jax2tf``; the port has no PyTorch-to-TensorFlow converter.
+* ``export_savedmodel`` / ``export_tflite`` (``--savedmodel``,
+  ``--tflite``): the counterparts of the JAX package's ``jax2tf`` legs,
+  written by the port's own codecs with no TensorFlow: the BN-folded
+  model's NHWC graph (``deploy/tf_graph.py``) as a SavedModel of plain TF
+  ops (``deploy/tf_proto.py``), converted to a flatbuffer of TFLite
+  builtins (``deploy/tflite_fb.py``); ``deploy/tf_np.py`` runs both in
+  numpy.  The files are the JAX package's ``native=False`` form: the
+  StableHLO-embedding form (``native=True``) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -90,6 +96,59 @@ def load_program(blob: bytes):
     from mmidet_tpu_torch.nn import (cem_cuda, fusion_cuda,  # noqa: F401
                                      transformer_cuda)
     return torch.export.load(io.BytesIO(blob)).module()
+
+
+def export_savedmodel(path: str, model: torch.nn.Module, img_size: int = 640,
+                      batch_size: int = 1, two_stream: bool = True,
+                      with_decode: bool = True,
+                      dtype: torch.dtype = torch.float32,
+                      native: bool = False) -> str:
+    """``model``'s inference forward as a TF SavedModel at ``path``:
+    ``tf.saved_model.load(path).serve(rgb[, ir])`` and its
+    ``signatures["serving_default"]`` (output key ``output_0``, or
+    ``output_0..2`` without the decode) on NHWC inputs ``(batch_size,
+    img_size, img_size, 3)`` of ``dtype`` (f32 or bf16) named ``rgb`` and
+    ``ir``.  The graph is that of a BN-folded copy of ``model`` in f32;
+    ``model`` is left as it is.  Counterpart of the JAX package's
+    ``export_savedmodel`` in its ``native=False`` form; ``native=True``
+    (the embedded StableHLO program) raises ``ValueError``, as do a
+    quantized model and a row with no graph form (``tf_graph``)."""
+    from mmidet_tpu_torch.deploy import tf_graph, tf_proto
+    from mmidet_tpu_torch.models.spec import is_two_stream
+    if native:
+        raise ValueError("export_savedmodel(native=True) embeds the JAX "
+                         "package's StableHLO program, which the port has "
+                         "no counterpart of; use native=False (plain TF "
+                         "graph ops)")
+    names = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    if dtype not in names:
+        raise ValueError(f"export_savedmodel: dtype {dtype} (f32 or bf16)")
+    spec = model.spec
+    if two_stream != is_two_stream(spec):
+        raise ValueError(f"two_stream={two_stream}, but the model is "
+                         f"{'two' if is_two_stream(spec) else 'single'}-"
+                         "stream")
+    graph = tf_graph.emit_graph(spec, model, img_size, batch_size,
+                                with_decode, names[dtype])
+    return tf_proto.write_savedmodel(path, graph)
+
+
+def export_tflite(savedmodel_path: str, out_path: str,
+                  native: bool = False) -> str:
+    """The SavedModel at ``savedmodel_path`` (one ``export_savedmodel``
+    wrote) as a .tflite flatbuffer of builtins at ``out_path``: its graph
+    decoded (``tf_proto``) and each node mapped onto its builtin
+    (``tflite_fb.convert``; an op with none raises ``ValueError`` naming
+    it).  ``native=True`` (StableHLO ops) raises ``ValueError``."""
+    from mmidet_tpu_torch.deploy import tf_proto, tflite_fb
+    if native:
+        raise ValueError("export_tflite(native=True) keeps StableHLO ops, "
+                         "which the port does not write; use native=False")
+    blob = tflite_fb.encode(tflite_fb.convert(tf_proto.load(
+        savedmodel_path)))
+    with open(out_path, "wb") as fh:
+        fh.write(blob)
+    return out_path
 
 
 def export_deploy_bundle(path: str, model: torch.nn.Module, spec,
@@ -165,7 +224,9 @@ def main(argv=None, device="cuda"):
     package's does, so that it also serves as a training init; its
     ``model.pt2`` is that model's graph, traced on ``device`` (the card
     unless the caller asks for the CPU).  ``--onnx`` adds ``model.onnx``,
-    the BN-folded model's graph."""
+    the BN-folded model's graph; ``--savedmodel`` adds ``savedmodel/``,
+    and ``--tflite`` also ``savedmodel_graph/`` and ``model.tflite``, the
+    JAX bundle's paths."""
     import argparse
 
     from mmidet_tpu_torch.cli.val import (build_model, load_state_dict_file,
@@ -185,12 +246,12 @@ def main(argv=None, device="cuda"):
     p.add_argument("--img-size", type=int, default=640)
     p.add_argument("--out", type=str, default="runs/export/bundle")
     p.add_argument("--savedmodel", action="store_true",
-                   help="TF SavedModel (not ported, raises: the JAX package "
-                        "builds it with jax2tf, and the port has no "
-                        "PyTorch-to-TensorFlow converter)")
+                   help="also export a TF SavedModel of plain graph ops "
+                        "(written by the port's codec; no TensorFlow at "
+                        "export or inference)")
     p.add_argument("--tflite", action="store_true",
-                   help="TFLite (not ported, raises: it converts the "
-                        "SavedModel)")
+                   help="also convert the SavedModel to .tflite (builtins "
+                        "only)")
     p.add_argument("--onnx", action="store_true",
                    help="also export an ONNX graph (opset 17; emitted "
                         "structurally, no onnx package needed; see "
@@ -200,13 +261,6 @@ def main(argv=None, device="cuda"):
                         "static shapes)")
     args = p.parse_args(argv)
     set_logging()
-    for flag, what in ((args.savedmodel, "--savedmodel"),
-                       (args.tflite, "--tflite")):
-        if flag:
-            raise NotImplementedError(
-                f"{what}: not ported; the JAX package builds it with "
-                "jax2tf, and the port has no PyTorch-to-TensorFlow "
-                "converter (ROADMAP A1)")
     dev = eval_device(device)
     spec = spec_by_name(args.cfg, args.nc)
     model = build_model(spec, load_state_dict_file(args.weights)
@@ -217,6 +271,22 @@ def main(argv=None, device="cuda"):
     have = os.path.isfile(os.path.join(path, PROGRAM_FILE))
     msg = "yes" if have else f"unavailable, see {PROGRAM_ERROR_FILE}"
     print(f"exported deploy bundle -> {path} (torch.export: {msg})")
+    if args.savedmodel or args.tflite:
+        import shutil
+
+        from mmidet_tpu_torch.models.spec import is_two_stream
+        sm = os.path.join(path, "savedmodel")
+        export_savedmodel(sm, model, img_size=args.img_size,
+                          batch_size=args.batch_size,
+                          two_stream=is_two_stream(spec))
+        print(f"exported TF SavedModel -> {sm}")
+        if args.tflite:
+            # the JAX bundle's graph-ops SavedModel, which its TFLite leg
+            # converts; the port's one form is that already
+            sm_graph = os.path.join(path, "savedmodel_graph")
+            shutil.copytree(sm, sm_graph, dirs_exist_ok=True)
+            tfl = export_tflite(sm_graph, os.path.join(path, "model.tflite"))
+            print(f"exported TFLite -> {tfl}")
     if args.onnx:
         from mmidet_tpu_torch.deploy.onnx_export import export_onnx
         from mmidet_tpu_torch.nn.fuse import fold_batchnorm

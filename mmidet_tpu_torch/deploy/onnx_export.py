@@ -16,7 +16,10 @@ loss, so its inference graph is GPT1's (no FFT ops).  The kernels play no
 part here: the CEM, the fusion blocks and their merges are emitted as the
 plain ops they compute.
 
-Serialization is the port's own codec (``onnx_proto``; no onnx wheel);
+The row walk and the rows whose ops do not depend on the layout are
+``deploy/rows.py``'s, which ``tf_graph`` (the NHWC emitter of the
+SavedModel and TFLite legs) shares.  Serialization is the
+port's own codec (``onnx_proto``; no onnx wheel);
 ``onnx_np`` runs the file in numpy.
 """
 
@@ -29,9 +32,9 @@ import torch
 
 from mmidet_tpu_torch.deploy.onnx_proto import (FLOAT, Graph, Model, Node,
                                                 Tensor, ValueInfo)
-from mmidet_tpu_torch.models.spec import (SECOND_INPUT, ModelSpec,
-                                          is_two_stream, resolve)
-from mmidet_tpu_torch.nn.cem import edge_filter_bank
+from mmidet_tpu_torch.deploy.rows import (detect_grid, emit_cem, np32,
+                                          rows, walk)
+from mmidet_tpu_torch.models.spec import ModelSpec, is_two_stream
 from mmidet_tpu_torch.nn.layers import autopad
 from mmidet_tpu_torch.nn.resize import (_adaptive_avg_weights,
                                         _bilinear_weights)
@@ -39,11 +42,9 @@ from mmidet_tpu_torch.nn.resize import (_adaptive_avg_weights,
 LN_EPS = 1e-5
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().float().numpy()
-
-
 class _Emitter:
+    what = "ONNX export"
+
     def __init__(self):
         self.nodes: list[Node] = []
         self.inits: list[Tensor] = []
@@ -93,14 +94,33 @@ class _Emitter:
             return self.op("HardSwish", [x])
         raise ValueError(f"ONNX export: unsupported activation {name!r}")
 
+    def add(self, a: str, b: str) -> str:
+        return self.op("Add", [a, b])
+
+    def concat(self, xs: list[str]) -> str:
+        return self.op("Concat", list(xs), axis=1)
+
+    def max_pool(self, x: str, k: int) -> str:
+        """Stride 1, the size kept."""
+        ph = k // 2
+        return self.op("MaxPool", [x], kernel_shape=[k, k], strides=[1, 1],
+                       pads=[ph, ph, ph, ph])
+
+    def upsample(self, x: str, scale: int) -> str:
+        return self.op("Resize",
+                       [x, "", self.init("sc", np.asarray(
+                           [1, 1, scale, scale], np.float32))],
+                       mode="nearest", nearest_mode="floor",
+                       coordinate_transformation_mode="asymmetric")
+
     def matmul(self, a: str, b: str) -> str:
         return self.op("MatMul", [a, b])
 
     def dense(self, x: str, lin: torch.nn.Linear) -> str:
         """``nn.Linear``: MatMul by the (in, out) kernel, then Add."""
-        y = self.matmul(x, self.init("dk", _np(lin.weight).T))
+        y = self.matmul(x, self.init("dk", np32(lin.weight).T))
         if lin.bias is not None:
-            y = self.op("Add", [y, self.init("db", _np(lin.bias))])
+            y = self.op("Add", [y, self.init("db", np32(lin.bias))])
         return y
 
     def reshape(self, x: str, shape) -> str:
@@ -124,138 +144,13 @@ class _Emitter:
 
     def layernorm(self, x: str, ln: torch.nn.LayerNorm) -> str:
         return self.op("LayerNormalization", [
-            x, self.init("lns", _np(ln.weight)),
-            self.init("lnb", _np(ln.bias))], axis=-1, epsilon=LN_EPS)
+            x, self.init("lns", np32(ln.weight)),
+            self.init("lnb", np32(ln.bias))], axis=-1, epsilon=LN_EPS)
 
     def gelu_exact(self, x: str) -> str:
         e = self.op("Erf", [self.const_mul(x, 1.0 / math.sqrt(2.0))])
         return self.const_mul(self.op("Mul", [x, self.const_add(e, 1.0)]),
                               0.5)
-
-
-def _conv_of(mod) -> tuple[np.ndarray, np.ndarray]:
-    """A folded ``ConvBnAct``'s OIHW kernel and bias."""
-    if mod.bn is not None or mod.conv.bias is None:
-        raise ValueError("ONNX export needs the BN-folded model "
-                         "(fold_batchnorm)")
-    return _np(mod.conv.weight), _np(mod.conv.bias)
-
-
-# ------------------------------------------------------------- emitters
-
-def _emit_convbnact(g, x, mod, args):
-    """Folded ``ConvBnAct``; args = (c2, k=1, s=1, pad=None, groups=1,
-    act='silu')."""
-    k = args[1] if len(args) > 1 else 1
-    s = args[2] if len(args) > 2 else 1
-    pad = args[3] if len(args) > 3 else None
-    groups = args[4] if len(args) > 4 else 1
-    act = args[5] if len(args) > 5 else "silu"
-    pp = autopad(k, pad)
-    pp = (pp, pp) if isinstance(pp, int) else tuple(pp)
-    w, b = _conv_of(mod)
-    y = g.conv(x, w, b, stride=s, pads=(pp[0], pp[1], pp[0], pp[1]),
-               groups=groups)
-    return g.act(y, act)
-
-
-def _emit_focus(g, x, mod, args):
-    """Folded Focus: its space-to-depth conv rearranged into one
-    (2k, 2k) stride-2 conv on the image, as the JAX emitter writes it."""
-    w, b = _conv_of(mod.conv)
-    kern = w.transpose(2, 3, 1, 0)                  # OIHW -> HWIO
-    k = kern.shape[0]
-    c1 = kern.shape[2] // 4
-    co = kern.shape[3]
-    act = args[2] if len(args) > 2 else "silu"
-    if isinstance(act, int):  # positional (features, k, s, act) unlikely
-        act = "silu"
-    p_ = autopad(k)
-    w = kern.reshape(k, k, 2, 2, c1, co)
-    big = np.zeros((2 * k, 2 * k, c1, co), np.float32)
-    for rg in range(2):
-        for sg in range(2):
-            big[rg::2, sg::2] = w[:, :, sg, rg]
-    y = g.conv(x, big.transpose(3, 2, 0, 1), b, stride=2,
-               pads=(2 * p_, 2 * p_, 2 * p_, 2 * p_))
-    return g.act(y, "silu" if not isinstance(act, str) else act)
-
-
-def _emit_bottleneck(g, x, mod, features, shortcut, c_in):
-    y = _emit_convbnact(g, x, mod.cv1, (None, 1, 1))
-    y = _emit_convbnact(g, y, mod.cv2, (None, 3, 1))
-    if shortcut and c_in == features:
-        return g.op("Add", [x, y])
-    return y
-
-
-def _emit_c3(g, x, mod, args):
-    c2 = args[0]
-    n = args[1] if len(args) > 1 else 1
-    shortcut = args[2] if len(args) > 2 else True
-    c_ = int(c2 * 0.5)
-    y1 = _emit_convbnact(g, x, mod.cv1, (None, 1, 1))
-    for i in range(n):
-        y1 = _emit_bottleneck(g, y1, mod.m[i], c_, shortcut, c_)
-    y2 = _emit_convbnact(g, x, mod.cv2, (None, 1, 1))
-    y = g.op("Concat", [y1, y2], axis=1)
-    return _emit_convbnact(g, y, mod.cv3, (None, 1, 1))
-
-
-def _emit_spp(g, x, mod, kernels):
-    x = _emit_convbnact(g, x, mod.cv1, (None, 1, 1))
-    ys = [x]
-    for k in kernels:
-        ph = k // 2
-        ys.append(g.op("MaxPool", [x], kernel_shape=[k, k],
-                       strides=[1, 1], pads=[ph, ph, ph, ph]))
-    y = g.op("Concat", ys, axis=1)
-    return _emit_convbnact(g, y, mod.cv2, (None, 1, 1))
-
-
-def _emit_sppf(g, x, mod, k):
-    x = _emit_convbnact(g, x, mod.cv1, (None, 1, 1))
-    ph = k // 2
-    y1 = g.op("MaxPool", [x], kernel_shape=[k, k], strides=[1, 1],
-              pads=[ph, ph, ph, ph])
-    y2 = g.op("MaxPool", [y1], kernel_shape=[k, k], strides=[1, 1],
-              pads=[ph, ph, ph, ph])
-    y3 = g.op("MaxPool", [y2], kernel_shape=[k, k], strides=[1, 1],
-              pads=[ph, ph, ph, ph])
-    y = g.op("Concat", [x, y1, y2, y3], axis=1)
-    return _emit_convbnact(g, y, mod.cv2, (None, 1, 1))
-
-
-def _emit_upsample(g, x, scale):
-    return g.op("Resize",
-                [x, "", g.init("sc", np.asarray([1, 1, scale, scale],
-                                                np.float32))],
-                mode="nearest", nearest_mode="floor",
-                coordinate_transformation_mode="asymmetric")
-
-
-def _emit_cem(g, x, mod, c):
-    """Folded ContourEnhance: conv2 + leaky, the edge bank (ONE full
-    (8c, 8c) constant conv: output channel o carries kernel o % 8 on every
-    input channel, scaled by its factor), residual, conv3 + leaky,
-    residual."""
-    if mod.bn2 is not None or mod.bn3 is not None:
-        raise ValueError("ONNX export needs the BN-folded model "
-                         "(fold_batchnorm)")
-    y = g.conv(x, _np(mod.conv2.weight), _np(mod.conv2.bias),
-               stride=1, pads=(1, 1, 1, 1))
-    y = g.act(y, "leaky0.1")
-    c8 = 8 * c
-    bank = edge_filter_bank(c8, c8, 3)           # (3,3,in=8c,out=8c) HWIO
-    factor = _np(mod.sobel.sobel_factor).reshape(-1)
-    e = g.conv(y, np.transpose(bank * factor[None, None, None, :],
-                               (3, 2, 0, 1)),
-               _np(mod.sobel.bias), stride=1, pads=(1, 1, 1, 1))
-    y = g.op("Add", [y, e])
-    y = g.conv(y, _np(mod.conv3.weight), _np(mod.conv3.bias),
-               stride=1, pads=(1, 1, 1, 1))
-    y = g.act(y, "leaky0.1")
-    return g.op("Add", [y, x])
 
 
 def _pool_matmul(g, x, h, w, gh, gw, kind):
@@ -311,7 +206,7 @@ def _emit_token_transformer(g, rgb_p, ir_p, mod, d, n_layer, gh, gw,
     tr = _tokens_from_map(g, rgb_p, d, gh, gw)
     ti = _tokens_from_map(g, ir_p, d, gh, gw)
     t = g.op("Concat", [tr, ti], axis=1)
-    t = g.op("Add", [t, g.init("pos", _np(mod.pos_emb))])
+    t = g.op("Add", [t, g.init("pos", np32(mod.pos_emb))])
     for i in range(n_layer):
         t = _emit_preln_block(g, t, mod.trans_blocks[i], d, heads)
     t = g.layernorm(t, mod.ln_f)
@@ -329,8 +224,8 @@ def _emit_gpt(g, rgb, ir, mod, d, n_layer, h, w, gated):
     rgb_p = _pool_matmul(g, rgb, h, w, gh, gw, "avg")
     ir_p = _pool_matmul(g, ir, h, w, gh, gw, "avg")
     if gated:
-        k1 = _np(mod.conv1.weight)                # (8,C,1,1)
-        k2 = _np(mod.conv2.weight)                # (C,8,1,1)
+        k1 = np32(mod.conv1.weight)                # (8,C,1,1)
+        k2 = np32(mod.conv2.weight)                # (C,8,1,1)
 
         def gate(x):
             m = g.op("Sigmoid", [g.conv(x, k1, None, pads=(0, 0, 0, 0))])
@@ -348,17 +243,14 @@ def _emit_detect(g, xs, mod, nc, anchors, strides, hw_list):
     no = nc + 5
     outs = []
     for i, (x, (ny, nx)) in enumerate(zip(xs, hw_list)):
-        y = g.conv(x, _np(mod.m[i].weight), _np(mod.m[i].bias),
+        y = g.conv(x, np32(mod.m[i].weight), np32(mod.m[i].bias),
                    pads=(0, 0, 0, 0))
         # NCHW (B, na*no, ny, nx) -> (B, na, no, ny, nx) -> (B,na,ny,nx,no)
         y = g.reshape(y, (0, na, no, ny, nx))
         y = g.transpose(y, (0, 1, 3, 4, 2))
         z = g.op("Sigmoid", [y])
         s = float(strides[i])
-        gy, gx = np.meshgrid(np.arange(ny, dtype=np.float32),
-                             np.arange(nx, dtype=np.float32), indexing="ij")
-        grid = np.stack([gx, gy], -1)[None, None]            # (1,1,ny,nx,2)
-        anchor = np.asarray(anchors[i], np.float32).reshape(1, na, 1, 1, 2)
+        grid, anchor = detect_grid(anchors[i], na, ny, nx)
         xy = g.slice_(z, [0], [2], [4])
         wh = g.slice_(z, [2], [4], [4])
         rest = g.slice_(z, [4], [no], [4])
@@ -385,111 +277,27 @@ def export_onnx(spec: ModelSpec, model: torch.nn.Module, img: int,
     stream, ``images``.  Output ``pred`` is (B, N, 5+nc), the detector's
     decoded prediction.  A row the emitter has no form for (MambaFusion,
     a bilinear Upsample, the other layer rows) raises ``ValueError``."""
-    resolved, save = resolve(spec)
     two = is_two_stream(spec)
     g = _Emitter()
-
-    hw = {}          # layer index -> (ny, nx) spatial dims
-
-    def hw_of(name_idx, cur):
-        return hw.get(name_idx, cur)
 
     x = "rgb" if two else "images"
     inputs = [ValueInfo(x, FLOAT, (batch, 3, img, img))]
     if two:
         inputs.append(ValueInfo("ir", FLOAT, (batch, 3, img, img)))
-    x2 = "ir" if two else None
     if use_cem:
-        x = _emit_cem(g, x, model.Enhance, 3)
+        x = emit_cem(g, x, model.Enhance, 3)
 
-    cur_hw = (img, img)
-    hw2 = (img, img)
-    y: dict[int, object] = {}
-    pred = None
-    for rl, mod in zip(resolved, model.model):
-        m = rl.name
+    def gpt(inp, mod, rl, in_hw):
+        h, w = in_hw[0]
+        return list(_emit_gpt(g, inp[0], inp[1], mod, rl.args[0],
+                              spec.fusion_layers, h, w,
+                              gated=rl.name != "GPT"))
 
-        def get(j):
-            if j == -1:
-                return x
-            if j == SECOND_INPUT:
-                return x2
-            return y[j]
-
-        if isinstance(rl.f, tuple):
-            inp = [get(j) for j in rl.f]
-            in_hw = [hw_of(j, cur_hw) if j not in (-1, SECOND_INPUT)
-                     else (cur_hw if j == -1 else hw2) for j in rl.f]
-        else:
-            inp = get(rl.f)
-            in_hw = (cur_hw if rl.f == -1
-                     else hw2 if rl.f == SECOND_INPUT
-                     else hw_of(rl.f, cur_hw))
-
-        if m == "Conv":
-            stride = rl.args[2] if len(rl.args) > 2 else 1
-            x = _emit_convbnact(g, inp, mod, rl.args)
-            cur_hw = (in_hw[0] // stride, in_hw[1] // stride)
-        elif m == "Focus":
-            x = _emit_focus(g, inp, mod, rl.args)
-            cur_hw = (in_hw[0] // 2, in_hw[1] // 2)
-        elif m == "C3":
-            x = _emit_c3(g, inp, mod, rl.args)
-            cur_hw = in_hw
-        elif m == "Bottleneck":
-            sc = rl.args[1] if len(rl.args) > 1 else True
-            # n > 1: sequential repeats (hub yolov3), model.{i}.{r}
-            copies = list(mod) if rl.n > 1 else [mod]
-            x = inp
-            for copy in copies:
-                x = _emit_bottleneck(g, x, copy, rl.args[0], sc, rl.args[0])
-            cur_hw = in_hw
-        elif m == "SPP":
-            x = _emit_spp(g, inp, mod, rl.args[1] if len(rl.args) > 1
-                          else (5, 9, 13))
-            cur_hw = in_hw
-        elif m == "SPPF":
-            x = _emit_sppf(g, inp, mod, rl.args[1] if len(rl.args) > 1
-                           else 5)
-            cur_hw = in_hw
-        elif m == "Concat":
-            x = g.op("Concat", list(inp), axis=1)
-            cur_hw = in_hw[0]
-        elif m == "Add":
-            x = g.op("Add", [inp[0], inp[1]])
-            cur_hw = in_hw[0]
-        elif m == "Add2":
-            x = g.op("Add", [inp[0], inp[1][rl.args[0]]])
-            cur_hw = in_hw[0]
-        elif m in ("Upsample", "nn.Upsample"):
-            scale = int(rl.args[1]) if len(rl.args) >= 2 and rl.args[1] else 2
-            mode = rl.args[2] if len(rl.args) >= 3 and isinstance(
-                rl.args[2], str) else "nearest"
-            if mode != "nearest":
-                raise ValueError("ONNX export: only nearest upsample")
-            x = _emit_upsample(g, inp, scale)
-            cur_hw = (in_hw[0] * scale, in_hw[1] * scale)
-        elif m in ("GPT", "GPT1", "GPT1_fourier"):
-            h, w = in_hw[0]
-            ro, io = _emit_gpt(g, inp[0], inp[1], mod, rl.args[0],
-                               spec.fusion_layers, h, w, gated=m != "GPT")
-            x = [ro, io]
-            cur_hw = in_hw[0]
-        elif m == "Detect":
-            pred = _emit_detect(g, list(inp), mod, rl.args[0], rl.args[1],
-                                spec.strides, list(in_hw))
-            x = pred
-            cur_hw = in_hw[0]
-        else:
-            raise ValueError(f"ONNX export: unhandled module {m!r} "
-                             f"(layer {rl.index})")
-
-        if rl.index in save:
-            y[rl.index] = x
-            hw[rl.index] = cur_hw
-
-    if pred is None:
-        raise ValueError("spec has no Detect layer")
+    def detect(inp, mod, rl, in_hw):
+        return _emit_detect(g, list(inp), mod, rl.args[0], rl.args[1],
+                            spec.strides, list(in_hw))
+    walk(spec, model, rows(g, gpt, detect), x, "ir" if two else None, img,
+         g.what)
     na = spec.na
     n_pred = sum(na * (img // s) ** 2 for s in spec.strides)
     g.nodes[-1].outputs[-1] = "pred"  # the last node; nothing consumes it

@@ -13,104 +13,21 @@ Field numbers follow the public ONNX schema
 (github.com/onnx/onnx/blob/main/onnx/onnx.proto, stable across IR
 versions 3..10).  Repeated scalar fields are written UNPACKED, which
 both proto2 and proto3 parsers accept.  Opset 17 (LayerNormalization).
+The wire helpers are ``pbwire``'s, which ``tf_proto`` shares.
 """
 
 from __future__ import annotations
 
-import struct
 from dataclasses import dataclass, field
 
 import numpy as np
 
-# ---------------------------------------------------------------- wire fmt
-
-_VARINT, _I64, _LEN, _I32 = 0, 1, 2, 5
-
-
-def _enc_varint(v: int) -> bytes:
-    if v < 0:
-        v &= (1 << 64) - 1  # two's-complement 64-bit, per protobuf int64
-    out = bytearray()
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def _enc_key(fieldno: int, wire: int) -> bytes:
-    return _enc_varint((fieldno << 3) | wire)
-
-
-def _enc_int(fieldno: int, v: int) -> bytes:
-    return _enc_key(fieldno, _VARINT) + _enc_varint(int(v))
-
-
-def _enc_float(fieldno: int, v: float) -> bytes:
-    return _enc_key(fieldno, _I32) + struct.pack("<f", float(v))
-
-
-def _enc_bytes(fieldno: int, v: bytes) -> bytes:
-    return _enc_key(fieldno, _LEN) + _enc_varint(len(v)) + v
-
-
-def _enc_str(fieldno: int, v: str) -> bytes:
-    return _enc_bytes(fieldno, v.encode("utf-8"))
-
-
-class _Reader:
-    def __init__(self, buf: bytes):
-        self.buf = buf
-        self.pos = 0
-
-    def eof(self) -> bool:
-        return self.pos >= len(self.buf)
-
-    def varint(self) -> int:
-        v, shift = 0, 0
-        while True:
-            b = self.buf[self.pos]
-            self.pos += 1
-            v |= (b & 0x7F) << shift
-            if not b & 0x80:
-                return v
-            shift += 7
-
-    def svarint(self) -> int:
-        v = self.varint()
-        return v - (1 << 64) if v >= (1 << 63) else v
-
-    def key(self) -> tuple[int, int]:
-        k = self.varint()
-        return k >> 3, k & 7
-
-    def bytes_(self) -> bytes:
-        n = self.varint()
-        out = self.buf[self.pos:self.pos + n]
-        self.pos += n
-        return out
-
-    def f32(self) -> float:
-        v = struct.unpack_from("<f", self.buf, self.pos)[0]
-        self.pos += 4
-        return v
-
-    def skip(self, wire: int) -> None:
-        if wire == _VARINT:
-            self.varint()
-        elif wire == _I64:
-            self.pos += 8
-        elif wire == _LEN:
-            n = self.varint()   # NB: must evaluate BEFORE the += reads pos
-            self.pos += n
-        elif wire == _I32:
-            self.pos += 4
-        else:
-            raise ValueError(f"bad wire type {wire}")
-
+from mmidet_tpu_torch.deploy.pbwire import VARINT as _VARINT
+from mmidet_tpu_torch.deploy.pbwire import Reader as _Reader
+from mmidet_tpu_torch.deploy.pbwire import enc_bytes as _enc_bytes
+from mmidet_tpu_torch.deploy.pbwire import enc_float as _enc_float
+from mmidet_tpu_torch.deploy.pbwire import enc_int as _enc_int
+from mmidet_tpu_torch.deploy.pbwire import enc_str as _enc_str
 
 # ------------------------------------------------------------- data model
 

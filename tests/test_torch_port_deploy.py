@@ -37,6 +37,8 @@ from mmidet_tpu_torch.models.zoo import get_model_spec, two_stream_spec
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 from mmidet_tpu_torch.nn.layers import ConvBnAct
 
+from test_torch_port_export import _images as _export_images
+from test_torch_port_export import check_tf_bundle, tf  # noqa: F401
 from test_torch_port_quant import _jax_variables
 from test_torch_port_serve import _same
 
@@ -305,16 +307,19 @@ def test_bundle_loads_everywhere(bundle, monkeypatch):
                                    rtol=0, atol=0)
 
 
-def test_export_cli_writes_a_bundle(bundle, tmp_path):
+def test_export_cli_writes_a_bundle(bundle, tmp_path, tf):
     """``python -m mmidet_tpu_torch.deploy.export``: the weights given
     come back through ``load_state_dict_file``; a blank ``--weights``
-    writes the seeded init; the SavedModel and TFLite legs raise (the
-    ONNX leg: ``test_torch_port_export.py``)."""
+    writes the seeded init; ``--savedmodel --tflite`` add the JAX
+    bundle's ``savedmodel/``, ``savedmodel_graph/`` and ``model.tflite``,
+    which TensorFlow runs as the BN-folded model (the ONNX leg and the
+    TF legs against JAX: ``test_torch_port_export.py``)."""
     path, spec, _ = bundle
     out = str(tmp_path / "cli")
     assert export.main(["--cfg", "yolov5t_add", "--nc", "2", "--weights",
                         path, "--names", "p", "q", "--img-size", "64",
-                        "--out", out], device="cpu") == out
+                        "--out", out, "--savedmodel", "--tflite"],
+                       device="cpu") == out
     sd = val.load_state_dict_file(out)
     own = val.load_state_dict_file(path)
     assert list(sd) == list(own)
@@ -328,10 +333,10 @@ def test_export_cli_writes_a_bundle(bundle, tmp_path):
     init = val.build_model(spec).state_dict()
     assert all(torch.equal(v, init[k])
                for k, v in val.load_state_dict_file(seeded).items())
-    for leg in ("--savedmodel", "--tflite"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-            export.main(["--cfg", "yolov5t_add", "--nc", "2", "--out",
-                         str(tmp_path / "graph"), leg], device="cpu")
+    rgb, ir = (torch.from_numpy(a[:1]) for a in _export_images())
+    check_tf_bundle(tf, out,
+                    fold_batchnorm(val.build_model(spec, own).eval()), rgb,
+                    ir)
 
 
 class _Stop(Exception):

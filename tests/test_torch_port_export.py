@@ -1,11 +1,14 @@
 """The port's deploy export against the JAX package's: reference-format
 checkpoints in (``train.checkpoint.load_torch_checkpoint`` through every
 entry point that takes ``--weights``), portable graphs out (K1, K3 and K4
-as ``torch.library`` ops, ``export_program``/``load_program``, and the ONNX
-leg: ``onnx_proto``, ``onnx_export``, ``onnx_np``), on the CPU at "t"
-width, 64 px."""
+as ``torch.library`` ops, ``export_program``/``load_program``, the ONNX
+leg: ``onnx_proto``, ``onnx_export``, ``onnx_np``, and the SavedModel and
+TFLite legs: ``tf_graph``, ``tf_proto``, ``tflite_fb``, ``tf_np``, their
+files loaded by TensorFlow), on the CPU at "t" width, 64 px."""
 
 import dataclasses
+import filecmp
+import functools
 import os
 import pickle
 import sys
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmidet_tpu.deploy import export as jax_export
 from mmidet_tpu.deploy import onnx_proto as jax_proto
 from mmidet_tpu.deploy.onnx_export import export_onnx as jax_export_onnx
 from mmidet_tpu.models.detector import TwoStreamDetector as JaxDetector
@@ -27,7 +31,8 @@ from mmidet_tpu.train.checkpoint import \
 from mmidet_tpu_torch import hub
 from mmidet_tpu_torch.bridge import from_jax_variables
 from mmidet_tpu_torch.cli import val
-from mmidet_tpu_torch.deploy import export, onnx_np, onnx_proto, serve
+from mmidet_tpu_torch.deploy import (export, onnx_np, onnx_proto, serve,
+                                     tf_np, tf_proto, tflite_fb)
 from mmidet_tpu_torch.deploy.onnx_export import export_onnx
 from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.zoo import single_stream_spec, two_stream_spec
@@ -56,6 +61,58 @@ def _rel_err(got, ref) -> float:
     [0, 1] (the JAX package's ONNX test)."""
     assert got.shape == ref.shape
     return float((np.abs(got - ref) / np.maximum(1.0, np.abs(ref))).max())
+
+
+@pytest.fixture(scope="module")
+def tf():
+    """TensorFlow (only the tests import it; a skip without it), its
+    threads capped to torch's, which the module's autouse fixture has set
+    first, and its graph
+    optimizer off while the module runs: the files are run as written,
+    and each function's first call costs a third of the time."""
+    tf = pytest.importorskip("tensorflow")
+    n = torch.get_num_threads()
+    try:
+        tf.config.threading.set_intra_op_parallelism_threads(n)
+        tf.config.threading.set_inter_op_parallelism_threads(n)
+    except RuntimeError:   # its runtime started already in this process
+        pass
+    before = tf.config.optimizer.get_experimental_options()
+    tf.config.optimizer.set_experimental_options(
+        {"disable_meta_optimizer": True})
+    yield tf
+    tf.config.optimizer.set_experimental_options(
+        {"disable_meta_optimizer": before.get("disable_meta_optimizer",
+                                              False)})
+
+
+def tflite_run(tf, path: str, feeds: dict) -> dict:
+    interp = tf.lite.Interpreter(path, num_threads=torch.get_num_threads())
+    return interp.get_signature_runner("serving_default")(**feeds)
+
+
+def check_tf_bundle(tf, out: str, folded, rgb, ir) -> dict:
+    """The export CLI's ``--savedmodel --tflite`` legs: the JAX bundle's
+    paths (``savedmodel_graph/`` the same files as ``savedmodel/``: the
+    port writes the graph-ops form only), and TensorFlow's output of the
+    SavedModel and the .tflite against ``folded``'s forward within
+    ONNX_TOL; returns the gaps."""
+    assert {"savedmodel", "savedmodel_graph", "model.tflite"} <= set(
+        os.listdir(out))
+    for f in ("saved_model.pb", "variables/variables.index",
+              "variables/variables.data-00000-of-00001"):
+        assert filecmp.cmp(os.path.join(out, "savedmodel", f),
+                           os.path.join(out, "savedmodel_graph", f),
+                           shallow=False)
+    with torch.no_grad():
+        ref = folded(rgb, ir)["pred"].numpy()
+    rgb, ir = rgb.numpy(), ir.numpy()
+    gaps = {"savedmodel": _rel_err(tf.saved_model.load(os.path.join(
+        out, "savedmodel")).serve(rgb, ir).numpy(), ref)}
+    gaps["tflite"] = _rel_err(tflite_run(tf, os.path.join(
+        out, "model.tflite"), {"rgb": rgb, "ir": ir})["output_0"], ref)
+    assert max(gaps.values()) < ONNX_TOL, gaps
+    return gaps
 
 
 def _images(n=2, seed=1):
@@ -138,7 +195,7 @@ class _Stop(Exception):
 
 
 def test_reference_checkpoint_through_every_entry_point(
-        ref_ckpt, fresh_imports, tmp_path, monkeypatch):
+        ref_ckpt, fresh_imports, tmp_path, monkeypatch, tf):
     """val (and detect, which loads through it), serve, the hub and the
     export CLI read the file with no reference checkout named, as the JAX
     package's val does, once its classes import; the trainer's
@@ -183,9 +240,11 @@ def test_reference_checkpoint_through_every_entry_point(
     out = str(tmp_path / "bundle")
     assert export.main(["--cfg", "yolov5t_add", "--nc", "2", "--weights",
                         path, "--img-size", str(IMG), "--out", out,
-                        "--onnx"], device="cpu") == out
+                        "--onnx", "--savedmodel", "--tflite"],
+                       device="cpu") == out
     assert sorted(os.listdir(out)) == ["model.json", "model.onnx", "model.pt",
-                                       "model.pt2"]
+                                       "model.pt2", "model.tflite",
+                                       "savedmodel", "savedmodel_graph"]
     bundle_sd = val.load_state_dict_file(out)
     assert all(torch.equal(bundle_sd[k], want[k]) for k in want)
     rgb, ir = (torch.from_numpy(a[:1]) for a in _images())
@@ -195,10 +254,8 @@ def test_reference_checkpoint_through_every_entry_point(
     assert _rel_err(onnx_np.run(graph, {
         "rgb": rgb.permute(0, 3, 1, 2).numpy(),
         "ir": ir.permute(0, 3, 1, 2).numpy()})["pred"], ref) < ONNX_TOL
-    for leg in ("--savedmodel", "--tflite"):
-        with pytest.raises(NotImplementedError, match="jax2tf"):
-            export.main(["--cfg", "yolov5t_add", "--nc", "2", "--out",
-                         str(tmp_path / "graph"), leg], device="cpu")
+    # the SavedModel and TFLite legs, run by TensorFlow
+    check_tf_bundle(tf, out, folded, rgb, ir)
 
 
 # ------------------------------------------------------------------ ONNX
@@ -433,3 +490,249 @@ def test_export_program_round_trip(folded_cases, name):
     rgb, ir = (torch.from_numpy(a) for a in _images(seed=5))
     with torch.no_grad():
         assert torch.equal(prog(rgb, ir), routed(rgb, ir)["pred"])
+
+
+# ------------------------------------------------- SavedModel and TFLite
+
+@pytest.fixture(scope="module")
+def jax_forward(folded_cases):
+    """``f(name)``: JAX's BN-folded forward of a case, jitted once a case:
+    ``f(name)(rgb[, ir])`` -> the ``apply`` output dict (``pred`` and
+    ``train_outs``)."""
+    fns = {}
+
+    def get(name):
+        if name not in fns:
+            jspec, _, two, folded, _ = folded_cases[name]
+            jm = JaxDetector(spec=jspec, aux_mode="off", use_cem=two,
+                             fused=True)
+            fn = jax.jit(lambda v, *x: jm.apply(v, *x, train=False))
+            fns[name] = functools.partial(fn, folded)
+        return fns[name]
+    return get
+
+
+def _is_builtin_only(tf, path: str) -> bool:
+    """TensorFlow's own schema reader: no CUSTOM operator code (so no
+    Flex op either), and every code one of the builtins the port
+    writes."""
+    from tensorflow.lite.python import schema_py_generated as schema
+    with open(path, "rb") as fh:
+        m = schema.Model.GetRootAs(fh.read(), 0)
+    codes = [m.OperatorCodes(i) for i in range(m.OperatorCodesLength())]
+    return all(c.CustomCode() is None
+               and c.BuiltinCode() != schema.BuiltinOperator.CUSTOM
+               and c.BuiltinCode() in tflite_fb.BUILTIN_NAMES
+               for c in codes)
+
+
+@pytest.mark.parametrize("name", ["add", "gpt4", "fourier", "single"])
+def test_savedmodel_and_tflite_match_jax(folded_cases, jax_forward, tf, name,
+                                         tmp_path):
+    """``export_savedmodel`` loaded by ``tf.saved_model.load`` (``serve``
+    and ``serving_default``) and ``export_tflite`` run by TFLite's
+    interpreter against JAX's ``pred`` within ONNX_TOL (the gaps are
+    printed); ``tf_np`` on both decoded files against TensorFlow within
+    1e-5; only builtins in the .tflite; the exported module unchanged."""
+    _, _, two, _, model = folded_cases[name]
+    rgb, ir = _images()
+    feeds = {"rgb": rgb, "ir": ir} if two else {"rgb": rgb}
+    want = np.asarray(jax_forward(name)(*feeds.values())["pred"])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    sm = export.export_savedmodel(str(tmp_path / "sm"), model, IMG, 2,
+                                  two_stream=two)
+    assert all(torch.equal(v, before[k])
+               for k, v in model.state_dict().items())
+    loaded = tf.saved_model.load(sm)
+    serve_out = loaded.serve(*feeds.values()).numpy()
+    sig = loaded.signatures["serving_default"](
+        **{k: tf.constant(v) for k, v in feeds.items()})
+    assert list(sig) == ["output_0"]
+    lite = export.export_tflite(sm, str(tmp_path / "model.tflite"))
+    lite_out = tflite_run(tf, lite, feeds)["output_0"]
+    gaps = {"serve": _rel_err(serve_out, want),
+            "serving_default": _rel_err(sig["output_0"].numpy(), want),
+            "tflite": _rel_err(lite_out, want)}
+    print(f"{name}: max |x - jax| / max(1, |jax|): {gaps}")
+    assert max(gaps.values()) < ONNX_TOL, gaps
+    assert _rel_err(tf_np.run(tf_proto.load(sm), feeds)["output_0"],
+                    serve_out) < 1e-5
+    decoded = tflite_fb.load(lite)
+    assert _rel_err(tf_np.run(decoded, feeds)["output_0"], lite_out) < 1e-5
+    assert _is_builtin_only(tf, lite)
+    assert decoded.opcodes and set(decoded.opcodes) <= set(
+        tflite_fb.BUILTIN_NAMES)
+
+
+def test_savedmodel_signature_matches_jax(folded_cases, tf, tmp_path,
+                                          monkeypatch):
+    """The ``add`` case: the port's SavedModel has the input names, dtypes
+    and shapes and the output keys of the JAX package's own
+    ``export_savedmodel(..., native=False)``, in ``serve`` and in
+    ``serving_default``, and the two give the same ``pred``.  JAX's
+    ``tf.function`` runs without autograph here: a ``jax2tf`` function
+    has no Python control flow on tensors for it to convert, and its
+    attempt takes about 13 s."""
+    monkeypatch.setattr(tf, "function",
+                        functools.partial(tf.function, autograph=False))
+    jspec, _, _, folded, model = folded_cases["add"]
+    jm = JaxDetector(spec=jspec, aux_mode="off", use_cem=True, fused=True)
+    theirs = tf.saved_model.load(jax_export.export_savedmodel(
+        str(tmp_path / "jax"), jm, folded, img_size=IMG, batch_size=2,
+        native=False))
+    path = export.export_savedmodel(str(tmp_path / "port"), model, IMG, 2)
+    ours = tf.saved_model.load(path)
+    sa, sb = (m.signatures["serving_default"] for m in (ours, theirs))
+    assert sa.structured_input_signature == sb.structured_input_signature
+    assert sa.structured_outputs == sb.structured_outputs
+    assert [(s.name, s.dtype, s.shape) for s in
+            ours.serve.concrete_functions[0].structured_input_signature[0]] \
+        == [(s.name, s.dtype, s.shape) for s in
+            theirs.serve.concrete_functions[0].structured_input_signature[0]]
+    # the port's decoder: the tag, and the top-level graph TF Serving
+    # reads through the SignatureDef
+    decoded = tf_proto.load(path)
+    assert decoded.tags == ["serve"]
+    assert [n.op for n in decoded.graph_nodes] == [
+        "Placeholder", "Placeholder", "PartitionedCall"]
+    assert {k: v[0] for k, v in decoded.signatures[
+        "serving_default"].inputs.items()} == {
+        "ir": "serving_default_ir:0", "rgb": "serving_default_rgb:0"}
+    rgb, ir = _images()
+    got, want = ours.serve(rgb, ir).numpy(), theirs.serve(rgb, ir).numpy()
+    assert _rel_err(got, want) < ONNX_TOL
+    got = ours.signatures["serving_default"](rgb=tf.constant(rgb),
+                                             ir=tf.constant(ir))
+    assert _rel_err(got["output_0"].numpy(), want) < ONNX_TOL
+
+
+def test_savedmodel_levels_and_bf16_match_jax(folded_cases, jax_forward,
+                                              tf, tmp_path):
+    """``with_decode=False``: the three levels' (B, na, ny, nx, no)
+    outputs (keys ``output_0..2``) against JAX's ``train_outs``;
+    ``dtype=torch.bfloat16``: bf16 inputs, cast to f32 first, against
+    JAX's ``pred`` on the same bf16 images (whose first op is that cast,
+    ``rgb.astype(self.dtype)``, ``mmidet_tpu/models/detector.py:74``, so
+    its f32 forward on the cast images is its bf16 forward); the numpy
+    runner on both.  TFLite takes no bf16 input: it refuses."""
+    model = folded_cases["add"][4]
+    rgb, ir = _images()
+    rgb16, ir16 = (jnp.asarray(a, jnp.bfloat16) for a in (rgb, ir))
+    jf = jax_forward("add")
+    levels = [np.asarray(t) for t in jf(rgb, ir)["train_outs"]]
+    want16 = np.asarray(jf(rgb16.astype(jnp.float32),
+                           ir16.astype(jnp.float32))["pred"])
+    sm = export.export_savedmodel(str(tmp_path / "lv"), model, IMG, 2,
+                                  with_decode=False)
+    loaded = tf.saved_model.load(sm)
+    outs = loaded.serve(rgb, ir)
+    sig = loaded.signatures["serving_default"](rgb=tf.constant(rgb),
+                                               ir=tf.constant(ir))
+    assert sorted(sig) == ["output_0", "output_1", "output_2"]
+    runner = tf_np.run(tf_proto.load(sm), {"rgb": rgb, "ir": ir})
+    for i, want in enumerate(levels):
+        assert outs[i].shape == want.shape == (2, 3, IMG // 2 ** (3 + i),
+                                               IMG // 2 ** (3 + i), 7)
+        for got in (outs[i].numpy(), sig[f"output_{i}"].numpy(),
+                    runner[f"output_{i}"]):
+            assert _rel_err(got, want) < ONNX_TOL
+    sm16 = export.export_savedmodel(str(tmp_path / "bf16"), model, IMG, 2,
+                                    dtype=torch.bfloat16)
+    loaded = tf.saved_model.load(sm16)
+    specs = loaded.signatures["serving_default"].structured_input_signature
+    assert {s.dtype for s in specs[1].values()} == {tf.bfloat16}
+    f16 = {k: np.asarray(v, np.float32) for k, v in
+           (("rgb", rgb16), ("ir", ir16))}
+    got = loaded.serve(tf.constant(rgb16), tf.constant(ir16)).numpy()
+    assert _rel_err(got, want16) < ONNX_TOL
+    assert _rel_err(tf_np.run(tf_proto.load(sm16), f16)["output_0"],
+                    got) < 1e-5
+    with pytest.raises(ValueError, match="bfloat16"):
+        export.export_tflite(sm16, str(tmp_path / "bf16.tflite"))
+
+
+def test_tf_primitives_match_torch(tf, tmp_path):
+    """The primitives no zoo case reaches: a depthwise conv (its padding
+    SAME in one dimension, a ``Pad`` node in the other), hardswish, relu
+    and div, written, converted and run by TensorFlow, TFLite and
+    ``tf_np`` against torch's forward."""
+    from mmidet_tpu_torch.deploy import tf_graph
+    gen = torch.Generator().manual_seed(3)
+    w, b = torch.randn(6, 1, 3, 3, generator=gen), torch.randn(6,
+                                                               generator=gen)
+    x = torch.randn(2, 9, 10, 6, generator=gen)
+    g = tf_graph.Emitter()
+    g.shapes["rgb"], g.dtypes["rgb"] = tuple(x.shape), "float32"
+    y = g.act(g.conv("rgb", w.numpy(), b.numpy(), stride=2,
+                     pads=(1, 1, 1, 1), groups=6), "hardswish")
+    y = g.op("div", [g.act(y, "relu"), g.const("c", np.float32(3.0))])
+    graph = tf_graph.TFGraph([("rgb", tuple(x.shape), "float32")], [y],
+                             g.ops, g.consts, g.shapes, g.dtypes)
+    sm = tf_proto.write_savedmodel(str(tmp_path / "sm"), graph)
+    lite = export.export_tflite(sm, str(tmp_path / "p.tflite"))
+    ref = torch.relu(torch.nn.functional.hardswish(torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), w, b, stride=2, padding=1, groups=6))) / 3
+    feeds = {"rgb": x.numpy()}
+    assert "DEPTHWISE_CONV_2D" in {
+        tflite_fb.BUILTIN_NAMES[c] for c in tflite_fb.load(lite).opcodes}
+    for got in (tf.saved_model.load(sm).serve(x.numpy()).numpy(),
+                tflite_run(tf, lite, feeds)["output_0"],
+                tf_np.run(tf_proto.load(sm), feeds)["output_0"],
+                tf_np.run(tflite_fb.load(lite), feeds)["output_0"]):
+        np.testing.assert_allclose(got, ref.permute(0, 2, 3, 1).numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_tf_export_refuses(folded_cases, tmp_path):
+    """``ValueError``: a MambaFusion row (naming it), ``native=True`` in
+    both entry points, a quantized (s8-storage) module, and a
+    single-stream export of a two-stream model."""
+    from mmidet_tpu_torch.nn.quant import make_quant_deploy
+    mamba = TwoStreamDetector(two_stream_spec("t", "mamba", nc=2))
+    with pytest.raises(ValueError, match="MambaFusion"):
+        export.export_savedmodel(str(tmp_path / "m"), mamba, IMG)
+    model = folded_cases["add"][4]
+    with pytest.raises(ValueError, match="native=True"):
+        export.export_savedmodel(str(tmp_path / "n"), model, IMG,
+                                 native=True)
+    with pytest.raises(ValueError, match="native=True"):
+        export.export_tflite(str(tmp_path / "n"), str(tmp_path / "n.tflite"),
+                             native=True)
+    rgb, ir = (torch.from_numpy(a) for a in _images())
+    quant = make_quant_deploy(model, [(rgb, ir)])
+    with pytest.raises(ValueError, match="quantized"):
+        export.export_savedmodel(str(tmp_path / "q"), quant, IMG)
+    with pytest.raises(ValueError, match="two-stream"):
+        export.export_savedmodel(str(tmp_path / "s"), model, IMG,
+                                 two_stream=False)
+    assert not os.path.exists(tmp_path / "m")
+
+
+def test_tf_codecs_round_trip():
+    """The tensor bundle of ``variables/`` to the byte against what
+    TensorFlow writes for the same object graph (the JAX package's
+    SavedModel's, as TF 2.x lays it); CRC-32C's check value; the
+    flatbuffer codec's encode -> decode of every options table."""
+    og = bytes.fromhex(
+        "0a1d0a090801120573657276650a0e0802120a7369676e6174757265732a000a0f"
+        "0a0b0803120774726163655f302a000a170a130804120f73657276696e675f6465"
+        "6661756c742a000a022a000a022a00")
+    index, data = tf_proto.bundle(og)
+    assert data.hex() == "51989acec1" + og.hex()
+    assert index.hex() == (
+        "00000608011a020801001c0b5f434845434b504f494e5441424c455f4f424a4543"
+        "545f4752415048080712002856359788579f00000000010000000002092b290000"
+        "00000100000000c0f2a1b000010260003b00000000010000000044f6c14940084d"
+        "0e" + "00" * 36 + "57fb808b247547db")
+    assert tf_proto.crc32c(b"123456789") == 0xE3069283
+    ops = [tflite_fb.Operator(0, [0, -1], [1], name, {
+        f: ([2, 3] if fmt == "[i" else 0.5 if fmt == "f" else True
+            if fmt == "?" else 3) for f, _, fmt in fields})
+        for name, (_, fields) in tflite_fb.OPTIONS.items()]
+    m = tflite_fb.Model([tflite_fb.GELU], [
+        tflite_fb.Tensor((2, 3), tflite_fb.FLOAT32, 1, "x"),
+        tflite_fb.Tensor((), tflite_fb.INT32, 0, "y")], [0], [1], ops,
+        [b"", np.arange(6, dtype=np.float32).tobytes()], {"x": 0}, {"y": 1})
+    back = tflite_fb.decode(tflite_fb.encode(m))
+    assert back == m
+    np.testing.assert_array_equal(back.array(0), np.arange(6).reshape(2, 3))

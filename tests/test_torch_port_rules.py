@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps: it imports nothing of JAX or of the JAX
-package, its entry point defaults to the card, and its kernel wrappers
-never fall back to the plain version for a tensor that is not on the
-CPU."""
+package, nor TensorFlow, protobuf or flatbuffers (the card's machine has
+none of them: the port's SavedModel and TFLite codecs are its own), its
+entry point defaults to the card, and its kernel wrappers never fall back
+to the plain version for a tensor that is not on the CPU."""
 
 import ast
 from pathlib import Path
@@ -16,7 +17,8 @@ from mmidet_tpu_torch.ops import nms_cuda
 from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3, probe_igemm
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmidet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmidet_tpu",
+             "tensorflow", "google.protobuf", "flatbuffers")
 
 
 def _imports(path):
@@ -49,6 +51,9 @@ def test_forbidden_matcher():
     assert _forbidden("jax.numpy") and _forbidden("mmidet_tpu.ops.nms")
     assert _forbidden("flax.linen") and not _forbidden("mmidet_tpu_torch.nn")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("tensorflow") and _forbidden("tensorflow.lite.python")
+    assert _forbidden("google.protobuf.message") and _forbidden("flatbuffers")
+    assert not _forbidden("google") and not _forbidden("tensorflowjs_like")
 
 
 def test_detection_service_defaults_to_the_card():
@@ -290,8 +295,10 @@ def test_kernels_are_traceable_custom_ops():
 
 def test_export_modules_are_covered_and_default_to_the_card():
     """The export path's modules (the checkpoint reader, the ONNX codec,
-    emitter and runner) are among the files the import rule above reads,
-    and the export CLI runs on the card unless asked for the CPU."""
+    emitter and runner, the shared wire helpers and row walk, the TF
+    graph emitter, the SavedModel and TFLite codecs and their numpy
+    runner) are among the files the import rule above reads, and the
+    export CLI runs on the card unless asked for the CPU."""
     import inspect
 
     from mmidet_tpu_torch.deploy import export
@@ -299,7 +306,9 @@ def test_export_modules_are_covered_and_default_to_the_card():
     files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
     assert {"deploy/export.py", "deploy/onnx_proto.py", "deploy/onnx_np.py",
             "deploy/onnx_export.py", "train/checkpoint.py",
-            "nn/resize.py"} <= files
+            "nn/resize.py", "deploy/pbwire.py", "deploy/rows.py",
+            "deploy/tf_graph.py", "deploy/tf_proto.py",
+            "deploy/tflite_fb.py", "deploy/tf_np.py"} <= files
     assert inspect.signature(export.main).parameters["device"].default == \
         "cuda"
     if not torch.cuda.is_available():
