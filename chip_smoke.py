@@ -130,6 +130,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      op histograms, MB); both written again at 128 and run through
      ``deploy/tf_np.py`` against the card's f32 forward through K3 and K4
      (launches asserted: K3 1, K4 4) and its plain route (``ONNX_TOL``);
+     then ``export_rows_path``: the SavedModel and .tflite at 640 of
+     yolov5x_mamba (full width and depth), the three YAML models of step
+     19 and ``ROWS_YAML`` (every other row the JAX detector takes), each
+     timed and decoded back (nodes, op histograms, MB), and at 128 run
+     through ``tf_np`` against the card's f32 forward, plain and, for
+     yolov5x_mamba's CEM, through K3 (one launch asserted);
   17. ``mamba_path``: the mamba family at full width, yolov5x_mamba (four
      MambaFusion levels: pool to 8x8, forward and backward stacks of four
      Mamba layers over the 128 tokens of both streams, the selective scan
@@ -158,8 +164,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      beside one PyTorch call of the same function (its error too) and an
      empty launch through the same path (the launch floor), timed in turns
      with each body;
-  22. ``train_options_path`` (after ``remat``, on the eval path's data):
-     ``train`` on the flagship at 320, batch 8, mosaic, 2 epochs with
+  22. ``train_options_path`` (after ``remat``, on the eval path's first
+     16 pairs): ``train`` on the flagship at 320, batch 8, mosaic, 2
+     epochs with
      ``image_weights`` (the weights the trainer gave the loader against
      ``labels_to_image_weights`` on the first evaluation's maps, the second
      epoch's base images against ``default_rng(seed + 1).choice``),
@@ -189,7 +196,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
   25. ``aux_experimental_gate``: ``nn/aux_experimental.py``'s modules and
      losses at 64 px in f32, TF32 off, card against CPU (``AUX_TOL``);
   26. ``dp_path``: data and tensor parallelism.  The flagship trains at
-     full width, 320 px, global batch 8, f32 with TF32 off, 2 steps from
+     full width, 320 px, global batch 8, f32 with TF32 off, one step from
      one seeded init: (b) on a one-rank NCCL mesh
      (``trainer.train_mesh``), the reference; (a) ``train`` over
      ``[card] * 2`` (gloo ranks sharing the card, data 2) and ``[card] *
@@ -2753,6 +2760,190 @@ def phase_export_path(torch, dev, card: str):
     return rec
 
 
+# A reference-format YAML with every row the JAX detector takes beyond the
+# named grammars: a copy of the layout that tests/test_torch_port_zoo_layers
+# .py:_yaml holds (tests/test_torch_port_export_rows.py checks that the
+# two are the same)
+ROWS_YAML = """
+nc: 2
+depth_multiple: 1.0
+width_multiple: 0.25
+anchors:
+  - [10, 13, 16, 30, 33, 23]
+  - [30, 61, 62, 45, 59, 119]
+backbone:
+  [[-1, 1, Conv, [32, 3, 2]],  # 0 /2
+   [-1, 1, nn.ZeroPad2d, [[0, 1, 0, 1]]],  # 1
+   [-1, 1, nn.MaxPool2d, [2, 1, 0]],  # 2
+   [-1, 1, GhostBottleneck, [64, 3, 2]],  # 3 /4
+   [-1, 2, Bottleneck, [64]],  # 4 repeated
+   [-1, 1, BottleneckCSP, [64, 1]],  # 5
+   [-1, 1, MixConv2d, [64, [1, 3]]],  # 6
+   [-1, 1, CrossConv, [64, 3, 1]],  # 7
+   [-1, 1, GhostConv, [64, 3, 1]],  # 8
+   [-1, 1, Contract, [2]],  # 9 /8
+   [-1, 1, Conv, [128, 1, 1]],  # 10
+   [-1, 1, C3TR, [128]],  # 11
+   [-1, 1, SPPF, [128, 5]],  # 12
+   [-1, 1, DWConv, [128, 3, 2]],  # 13 /16
+  ]
+head:
+  [[-1, 1, nn.Upsample, [null, 2, bilinear]],  # 14 /8
+   [[-1, 12], 1, Concat, [1]],  # 15
+   [-1, 1, Conv, [64, 1, 1]],  # 16
+   [-1, 1, Expand, [2]],  # 17 /4
+   [-1, 1, Conv, [64, 3, 2]],  # 18 /8
+   [[18, 13], 1, Detect, [nc, anchors]],  # 19
+  ]
+"""
+# export_rows_path: the models whose TF files hold the rows beyond the
+# ONNX leg's (zoo names, ``YAML_MODELS`` keys, "rows" for ``ROWS_YAML``)
+EXPORT_ROWS_MODELS = ("yolov5x_mamba", "yolov3-tiny", "yolov3",
+                      "yolov5s-transformer", "rows")
+
+
+def export_rows_spec(name: str):
+    import yaml
+
+    from mmidet_tpu_torch.models.spec import load_yolo_yaml
+    from mmidet_tpu_torch.models.zoo import get_model_spec
+    if name == "rows":
+        return load_yolo_yaml(yaml.safe_load(ROWS_YAML))
+    return yaml_spec(name) if name in YAML_MODELS else get_model_spec(name)
+
+
+def phase_export_rows_path(torch, dev, card: str):
+    """The SavedModel and TFLite legs of the rows beyond the ONNX leg's,
+    for each of ``EXPORT_ROWS_MODELS`` (seeded, BN folded, f32): the
+    mamba family's widest, yolov5x_mamba (MambaFusion at four levels),
+    the three YAML models of ``yaml_path`` (nn.MaxPool2d, nn.ZeroPad2d,
+    C3TR) and ``ROWS_YAML`` (every other row); (a) ``export_savedmodel``
+    and ``export_tflite`` at 640, batch 1, timed, decoded back by the
+    port's codecs (nodes, op histograms, every TFLite operator a builtin,
+    MB), then removed; (b) both forms at 128 (``ONNX_IMG``) encoded and
+    decoded in memory (the files' bytes, not written: a call's disk
+    writes are capped) and run through ``deploy/tf_np.py`` against the
+    card's f32 forward of the same weights (TF32 off) on its plain route
+    and, where the model has the CEM, through K3 (launches asserted)."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from mmidet_tpu_torch.deploy import (export, tf_graph, tf_np, tf_proto,
+                                         tflite_fb)
+    from mmidet_tpu_torch.models.spec import is_two_stream
+
+    def rel(a, b) -> float:
+        return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+
+    t_phase = time.perf_counter()
+    out_dir = EXPORT_DATA / "rows"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    recs, launches = [], {}
+    try:
+        for name in EXPORT_ROWS_MODELS:
+            t0 = time.perf_counter()
+            spec = export_rows_spec(name)
+            two = is_two_stream(spec)
+            model = build_model(torch, spec, use_cem=two)
+            rec = {"phase": "export_rows_path", "model": name, "card": card,
+                   "params_m": sum(p.numel() for p in model.parameters())
+                   / 1e6, "rows": sorted({ld.name for ld in spec.layers}),
+                   "img": 640, "seconds": {}}
+            secs = rec["seconds"]
+            secs["build"] = time.perf_counter() - t0
+            # (a) the files at 640
+            sm = str(out_dir / f"{name}_savedmodel")
+            lite = str(out_dir / f"{name}.tflite")
+            t1 = time.perf_counter()
+            export.export_savedmodel(sm, model, 640, 1, two_stream=two)
+            secs["export_savedmodel"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            export.export_tflite(sm, lite)
+            secs["export_tflite"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            body = tf_proto.load(sm).serve_function()
+            fb = tflite_fb.load(lite)
+            ops = collections.Counter(
+                tflite_fb.BUILTIN_NAMES.get(fb.opcodes[o.opcode],
+                                            fb.opcodes[o.opcode])
+                for o in fb.operators)
+            rec.update(
+                savedmodel_nodes=len(body.nodes),
+                savedmodel_ops=dict(collections.Counter(
+                    n.op for n in body.nodes).most_common()),
+                savedmodel_mb=os.path.getsize(
+                    os.path.join(sm, "saved_model.pb")) / 1e6,
+                tflite_operators=len(fb.operators),
+                tflite_ops=dict(ops.most_common()),
+                tflite_mb=os.path.getsize(lite) / 1e6,
+                all_builtin=all(isinstance(k, str) for k in ops))
+            del body, fb
+            shutil.rmtree(sm)
+            os.remove(lite)
+            secs["decode"] = time.perf_counter() - t1
+            # (b) both forms at 128 in memory, through tf_np
+            t1 = time.perf_counter()
+            graph = tf_graph.emit_graph(spec, model, ONNX_IMG, 1)
+            smf = tf_proto.decode_savedmodel(
+                tf_proto.savedmodel_bytes(graph)[0])
+            del graph
+            fbf = tflite_fb.decode(tflite_fb.encode(tflite_fb.convert(smf)))
+            secs["emit_128"] = time.perf_counter() - t1
+            gen = torch.Generator().manual_seed(13)
+            xs = [torch.rand(1, ONNX_IMG, ONNX_IMG, 3, generator=gen)
+                  for _ in range(1 + two)]
+            feeds = dict(zip(("rgb", "ir"), (x.numpy() for x in xs)))
+            got, run_s = {}, {}
+            for key, decoded in (("savedmodel", smf), ("tflite", fbf)):
+                t1 = time.perf_counter()
+                got[key] = tf_np.run(decoded, feeds)["output_0"]
+                run_s[key] = time.perf_counter() - t1
+            del smf, fbf
+            model = model.to(dev)
+            want = {}
+            with torch.inference_mode():
+                xd = [x.to(dev) for x in xs]
+                want["plain"] = model(*xd)["pred"].cpu().numpy()
+                if two:
+                    set_kernel_flags(model, False, True, False)
+                    zero_counts()
+                    want["kernels"] = model(*xd)["pred"].cpu().numpy()
+                    launches[name] = read_counts(fused_cem=1)["fused_cem"]
+                    set_kernel_flags(model, False, False, False)
+            rec.update(
+                run_img=ONNX_IMG, run_s=run_s, tol=ONNX_TOL,
+                pred_shape=list(want["plain"].shape),
+                max_rel_err={f"{k}_vs_{route}": rel(v, w)
+                             for k, v in got.items()
+                             for route, w in want.items()},
+                launches={"fused_cem": launches.get(name, 0)})
+            if "kernels" in want:
+                rec["kernels_vs_plain"] = rel(want["kernels"], want["plain"])
+            del model
+            torch.cuda.empty_cache()
+            secs["total"] = time.perf_counter() - t0
+            emit(rec)
+            if (not rec["all_builtin"]
+                    or any(v.shape != want["plain"].shape
+                           for v in got.values())
+                    or not all(math.isfinite(e) and e < ONNX_TOL
+                               for e in rec["max_rel_err"].values())):
+                raise AssertionError(f"export_rows_path {name}: {rec}")
+            recs.append(rec)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out = {"phase": "export_rows_path_done", "card": card,
+           "models": [r["model"] for r in recs], "launches": launches,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def mamba_levels(torch, model, rgb, ir, reps: int = 10):
     """Each MambaFusion level of ``model`` timed alone on the inputs the
     forward gives it (CUDA events), and the selective scan's share of it:
@@ -3448,7 +3639,8 @@ def wandb_absent():
 
 def phase_train_options_path(torch, dev, card: str):
     """``train`` on the flagship at 320 px, batch 8, mosaic, 2 epochs on
-    the eval path's 64 square pairs with ``image_weights``,
+    the eval path's first 16 square pairs (``evolve_data``: 2 steps an
+    epoch, 2 batches an evaluation) with ``image_weights``,
     ``bbox_interval=1``, ``use_wandb`` (wandb held absent: the run goes
     on), ``log_artifacts`` and ``upload_dataset`` into a store under
     ``EVAL_DATA``, ``bucket`` through a recording ``gsutil`` stub and
@@ -3496,7 +3688,7 @@ def phase_train_options_path(torch, dev, card: str):
     # against a 45 GiB limit, deleted files too
     options = dict(img_size=320, mosaic_prob=1.0, image_weights=True,
                    bbox_interval=1, use_wandb=True, log_artifacts=True,
-                   bucket=OPTIONS_BUCKET, nosave=True)
+                   bucket=OPTIONS_BUCKET, nosave=True, data=evolve_data())
     env = {"MMIDET_ARTIFACT_ROOT": str(store),
            "PATH": f"{stub_dir}{os.pathsep}{os.environ.get('PATH', '')}"}
     runs = []
@@ -3600,7 +3792,7 @@ def evolve_data(n: int = 16) -> str:
                 src / mod / "labels" / (p.stem + ".txt") for p in imgs])):
             (dst / mod / sub).mkdir(parents=True, exist_ok=True)
             for f in files:
-                if f.exists():
+                if f.exists() and not (dst / mod / sub / f.name).exists():
                     os.link(f, dst / mod / sub / f.name)
     rgb, ir = (str(dst / m / "images") for m in ("val_rgb", "val_ir"))
     path = dst / "data.yaml"
@@ -3906,7 +4098,7 @@ def phase_aux_experimental_gate(torch, dev, card: str):
 
 DP_IMG = 320                    # dp_path: the flagship trains at 320 px,
 DP_BATCH = 8                    # global batch 8 (accumulate 1),
-DP_PAIRS = 16                   # 2 steps an epoch, 1 epoch
+DP_PAIRS = 8                    # 1 step an epoch, 1 epoch
 DP_VAL_PAIRS = 7                # evaluate over [card, card] at batch 6:
 DP_EVAL_BATCH = 6               # 6, then 1 padded to 2
 DP_DATA = ROOT / "runs" / "chip_smoke_dp"  # git-ignored; removed after
@@ -3919,9 +4111,11 @@ DP_DATA = ROOT / "runs" / "chip_smoke_dp"  # git-ignored; removed after
 # its change (tests/test_torch_port_mesh.py::
 # test_f64_flagship_grammar_step_per_tensor).  In f32 here rounding
 # spreads unevenly: one tensor, the IR stream's SPP input conv
-# (model.27.cv1), differs by 4.7% of its change after 2 steps on an H100
-# in every run, and data 2 and 2 x 2 differ by 3.0% from each other on
-# it; the whole state by 2.4e-4 to 2.9e-4.  So two gates: the whole state
+# (model.27.cv1), differed by 4.7% of its change after 2 steps on an H100
+# in every run of 2 steps, and data 2 and 2 x 2 by 3.0% from each other
+# on it; the whole state by 2.4e-4 to 2.9e-4 (the path takes one step
+# now, so rounding has one update less to spread).  So two gates: the
+# whole state
 # (|change of the run - change of the one rank| / |change of the one
 # rank| over every float entry of the model, and of the EMA, together)
 # within 1%, and each tensor's share within 10%.  A fault moves what it
@@ -3930,8 +4124,9 @@ DP_DATA = ROOT / "runs" / "chip_smoke_dp"  # git-ignored; removed after
 DP_MOVE_TOL = 1e-2
 DP_TENSOR_TOL = 1e-1
 DP_MOVE_FLOOR = 1e-6
-# rank 0's loss metrics of every step against the one-rank run's: step 1
-# runs the same weights (4e-7 seen), step 2 after one update (4e-5 seen)
+# rank 0's loss metrics of every step against the one-rank run's: the
+# step runs the same weights (4e-7 seen; a second step, after one update,
+# read 4e-5)
 DP_METRIC_RTOL = 1e-4
 # evaluate and BatchingService over [card, card] are held against one
 # device whose forwards take the shards' sizes (evaluate at batch 3,
@@ -4337,6 +4532,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     hub_rec = phase_hub_path(torch, dev, name)
     exported = phase_export_path(torch, dev, name)
+    exported_rows = phase_export_rows_path(torch, dev, name)
     mamba, _ = phase_path(
         torch, dev, name, "mamba_path", "mamba_vs_plain", "yolov5x_mamba",
         {"kernel_fusion": False}, {"nms_greedy": 1}, reps=5,
@@ -4424,6 +4620,8 @@ def main() -> int:
          "export_launches": exported["flagship"]["launches"]["fused_cem"],
          # the f32 forward the SavedModel and TFLite files are held against
          "tf_export_gate_launches": exported["tf"]["launches"]["fused_cem"],
+         # the same for yolov5x_mamba's files (export_rows_path)
+         "tf_rows_gate_launches": exported_rows["launches"],
          "sources_launches": sources["launches_timed"]["fused_cem"],
          # dp_path: one a shard, evaluate (both models) and
          # BatchingService over two entries of the card

@@ -110,9 +110,10 @@ def export_savedmodel(path: str, model: torch.nn.Module, img_size: int = 640,
     img_size, img_size, 3)`` of ``dtype`` (f32 or bf16) named ``rgb`` and
     ``ir``.  The graph is that of a BN-folded copy of ``model`` in f32;
     ``model`` is left as it is.  Counterpart of the JAX package's
-    ``export_savedmodel`` in its ``native=False`` form; ``native=True``
-    (the embedded StableHLO program) raises ``ValueError``, as do a
-    quantized model and a row with no graph form (``tf_graph``)."""
+    ``export_savedmodel`` in its ``native=False`` form, for every row the
+    JAX detector takes (``tf_graph``); ``native=True`` (the embedded
+    StableHLO program) raises ``ValueError``, as does a quantized
+    model."""
     from mmidet_tpu_torch.deploy import tf_graph, tf_proto
     from mmidet_tpu_torch.models.spec import is_two_stream
     if native:

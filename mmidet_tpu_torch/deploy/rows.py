@@ -5,12 +5,15 @@ TFLite).
 ``walk`` runs through ``resolve(spec)`` beside the modules of a BN-folded
 detector, feeds each row's handler the values its ``from`` indices name
 (the previous row, the second input, or a saved row), keeps the spatial
-size of every value, saves the rows that later rows read, and returns what
-the Detect row gave.  ``rows`` is the handler table: the rows whose ops
-are the same in both layouts are emitted here, through the emitter's
-``conv``, ``act``, ``add``, ``concat``, ``max_pool`` and ``upsample``
-(an ONNX node or a TF op each, in the emitter's layout); the GPT rows and
-Detect, whose dataflow differs by layout, come from the caller.
+size of every value (by the rows' own rule, ``_out_hw``, or read off the
+emitted value by the caller's ``hw_of``), saves the rows that later rows
+read, and returns what the Detect row gave.  ``rows`` is the handler
+table: the rows whose ops are the same in both layouts are emitted here,
+through the emitter's ``conv``, ``act``, ``add``, ``concat``,
+``max_pool`` and ``upsample`` (an ONNX node or a TF op each, in the
+emitter's layout); the GPT rows and Detect, whose dataflow differs by
+layout, come from the caller, and ``tf_graph`` adds the rows only the
+TF legs take.
 ``detect_grid`` gives Detect's grid and anchors as the decode adds them.
 """
 
@@ -54,13 +57,15 @@ def _out_hw(rl, in_hw):
 
 
 def walk(spec: ModelSpec, model, rows: dict[str, Callable], x, x2,
-         img: int, what: str):
+         img: int, what: str, hw_of: Callable | None = None):
     """Walk ``spec``'s rows with ``model.model``'s modules.  ``rows`` maps
     a row name to ``handler(inp, mod, rl, in_hw) -> value``, where ``inp``
     is one value or a list of them (a tuple ``from``) and ``in_hw`` their
     (ny, nx) sizes alike.  ``x`` is the first input (after the CEM, if
-    any), ``x2`` the second or None.  Returns the Detect row's value; a
-    row with no handler raises ``ValueError`` naming it."""
+    any), ``x2`` the second or None.  ``hw_of(value)``, where given,
+    gives a row's (ny, nx) from the value its handler returned.  Returns
+    the Detect row's value; a row with no handler raises ``ValueError``
+    naming it."""
     resolved, save = resolve(spec)
     hw = {}          # layer index -> (ny, nx) spatial dims
     cur_hw = (img, img)
@@ -92,7 +97,7 @@ def walk(spec: ModelSpec, model, rows: dict[str, Callable], x, x2,
             raise ValueError(f"{what}: unhandled module {rl.name!r} "
                              f"(layer {rl.index})")
         x = handler(inp, mod, rl, in_hw)
-        cur_hw = _out_hw(rl, in_hw)
+        cur_hw = hw_of(x) if hw_of else _out_hw(rl, in_hw)
         if rl.name == "Detect":
             pred = x
         if rl.index in save:

@@ -5,34 +5,48 @@ Counterpart of what ``jax2tf`` lowers in ``mmidet_tpu/deploy/export.py``
 *emitted structurally*: ``emit_graph`` walks ``resolve(spec)`` with the
 row walk and row emitters it shares with the ONNX emitter
 (``deploy/rows.py``) over a BN-folded copy of the detector, and reads
-each module's weights as f32 on the CPU.  The tensors are NHWC from the inputs on (TF's CPU ``Conv2D`` and
-``MaxPool`` take no NCHW, and TFLite has no NCHW at all), and the weights
-are laid out as TF takes them: conv filters HWIO, depthwise filters
-(H, W, C, 1), matmul right-hand sides (in, out).
+each module's weights as f32 on the CPU.  The tensors are NHWC from the
+inputs on (TF's CPU ``Conv2D`` and ``MaxPool`` take no NCHW, and TFLite
+has no NCHW at all), and the weights are laid out as TF takes them: conv
+filters HWIO (grouped: I the channels of a group), depthwise filters (H,
+W, C, multiplier), matmul right-hand sides (in, out).
 
 The result, a ``TFGraph``, is a list of primitive ops that both file
 writers and the numpy runner understand, with every value's static shape:
 
-  conv2d, depthwise_conv2d (x, filter[, bias]; ``stride``, ``pads``
-  (top, bottom, left, right)), add, sub, mul, div, squared_difference,
-  sigmoid, relu, leaky_relu (``alpha``), hardswish, gelu (exact, erf),
-  concat (``axis``), max_pool (``k``, stride 1, SAME), resize_nearest
-  (``scale``; no corner alignment, no half-pixel centres), pad
-  (``pads`` per dim), reshape (``shape``), transpose (``perm``), matmul
-  (a, b[, bias]; batched, broadcast), softmax (last axis), mean (``axes``,
-  keepdims), rsqrt, strided_slice (``begin``, ``end``, ``strides``) and
-  cast (``to``).
+  conv2d, depthwise_conv2d (x, filter[, bias]; ``stride``, an int or
+  (h, w), ``pads`` (top, bottom, left, right)), add, sub, mul, div,
+  squared_difference, sigmoid, relu, leaky_relu (``alpha``), hardswish,
+  gelu (exact, erf), exp, log, concat (``axis``), max_pool (``k``,
+  ``stride`` (default 1), ``padding`` SAME (default) or VALID),
+  resize_nearest (``scale``; no corner alignment, no half-pixel centres),
+  pad (``pads`` per dim, ``value``: 0 unless given, -inf before a max
+  pool), reshape (``shape``), transpose (``perm``), reverse (``axis``),
+  space_to_depth and depth_to_space (``block``), matmul (a, b[, bias];
+  batched, broadcast), softmax (last axis), mean (``axes``, keepdims),
+  rsqrt, strided_slice (``begin``, ``end``, ``strides``) and cast
+  (``to``).
 
 As in the ONNX graph the kernels play no part: the CEM, the fusion blocks
 and their merges are the plain ops they compute, and GPT1_fourier's
-inference graph is GPT1's.  The fusion blocks' average pool and bilinear
-upsample are the constant matrices of ``nn/resize.py`` (as the JAX
-package computes them, ``mmidet_tpu/nn/fusion.py:43``), here as one
-matmul each over the flattened map.  A row with no form here (MambaFusion,
-a bilinear Upsample, the other YAML rows) raises ``ValueError``, as does
-the s8-storage (quantized) model.
+inference graph is GPT1's.  The fusion blocks' average pool is the
+constant matrix of ``nn/resize.py`` (as the JAX package computes it,
+``mmidet_tpu/nn/fusion.py:43``), one matmul over the flattened map; the
+GPT blocks' bilinear upsample is one such matmul too, and MambaFusion's
+and a bilinear ``Upsample`` row's are two, one an axis (a map's one
+matrix would grow as the square of its size).  Every row the JAX
+detector takes has a form here, so every zoo model and every reference
+YAML exports; beyond the ONNX leg's rows (``rows.py``) ``emit_graph``
+adds MambaFusion (its causal conv a depthwise conv over a (B, 1, L, C)
+view, its selective scan unrolled as ``linear_recurrence``'s rounds, the
+backward stack on a ``reverse``), C3TR, BottleneckCSP, DWConv, GhostConv,
+GhostBottleneck, MixConv2d, CrossConv, Contract and Expand (space to
+depth and back, the JAX channel order), a bilinear Upsample,
+``nn.MaxPool2d`` (strided, -inf padding) and ``nn.ZeroPad2d``.  A
+BatchNorm the fold leaves (BottleneckCSP's, MixConv2d's, CrossConv's) is
+a per-channel ``mul`` + ``add`` from its running statistics.  The
+s8-storage (quantized) model raises ``ValueError``.
 """
-
 from __future__ import annotations
 
 import copy
@@ -42,8 +56,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from mmidet_tpu_torch.deploy.rows import (detect_grid, emit_cem, np32,
-                                          rows, walk)
+from mmidet_tpu_torch.deploy.rows import (UPSAMPLE_ROWS, detect_grid,
+                                          emit_cem, np32, rows,
+                                          upsample_mode, upsample_scale,
+                                          walk)
+from mmidet_tpu_torch.deploy.tf_proto import pair
 from mmidet_tpu_torch.models.spec import ModelSpec, is_two_stream
 from mmidet_tpu_torch.nn.layers import autopad
 from mmidet_tpu_torch.nn.resize import (_adaptive_avg_weights,
@@ -53,7 +70,7 @@ LN_EPS = 1e-5
 WHAT = "SavedModel export"
 
 UNARY = ("sigmoid", "relu", "leaky_relu", "hardswish", "gelu", "softmax",
-         "rsqrt", "cast")
+         "rsqrt", "cast", "exp", "log", "reverse")
 BINARY = ("add", "sub", "mul", "div", "squared_difference")
 
 
@@ -88,12 +105,24 @@ def infer_shape(kind: str, shapes: list[tuple], attrs: dict) -> tuple:
     if kind in ("conv2d", "depthwise_conv2d"):
         kh, kw, ci, co = shapes[1]
         t, b, le, r = attrs["pads"]
-        s = attrs["stride"]
+        sh, sw = pair(attrs["stride"])
         c = x[3] * co if kind == "depthwise_conv2d" else co
-        return (x[0], _conv_out(x[1], kh, s, t, b),
-                _conv_out(x[2], kw, s, le, r), c)
-    if kind in UNARY or kind == "max_pool":
+        return (x[0], _conv_out(x[1], kh, sh, t, b),
+                _conv_out(x[2], kw, sw, le, r), c)
+    if kind == "max_pool":
+        k, s = attrs["k"], attrs.get("stride", 1)
+        if attrs.get("padding", "SAME") == "SAME":
+            return (x[0], -(-x[1] // s), -(-x[2] // s), x[3])
+        return (x[0], _conv_out(x[1], k, s, 0, 0),
+                _conv_out(x[2], k, s, 0, 0), x[3])
+    if kind in UNARY:
         return tuple(x)
+    if kind == "space_to_depth":
+        s = attrs["block"]
+        return (x[0], x[1] // s, x[2] // s, x[3] * s * s)
+    if kind == "depth_to_space":
+        s = attrs["block"]
+        return (x[0], x[1] * s, x[2] * s, x[3] // (s * s))
     if kind in BINARY:
         return tuple(np.broadcast_shapes(*shapes))
     if kind == "concat":
@@ -155,26 +184,27 @@ class Emitter:
 
     # ---- composites ---------------------------------------------------
     def conv(self, x: str, kernel_oihw: np.ndarray, bias: np.ndarray | None,
-             stride: int = 1, pads=None, groups: int = 1) -> str:
-        """An OIHW conv as ``conv2d`` (groups 1) or ``depthwise_conv2d``
-        (one group a channel); ``pads`` (top, left, bottom, right) as the
-        ONNX emitter takes them."""
+             stride=1, pads=None, groups: int = 1) -> str:
+        """An OIHW conv as ``depthwise_conv2d`` (one group an input channel,
+        the multiplier ``co / groups``) or ``conv2d`` (any other groups:
+        TF's ``Conv2D`` and TFLite's ``CONV_2D`` take a filter of the
+        group's input channels); ``stride`` an int or (h, w), ``pads``
+        (top, left, bottom, right) as the ONNX emitter takes them."""
         co, cig, kh, kw = kernel_oihw.shape
         if pads is None:
             p = autopad(kh)
             pads = (p, p, p, p)
         pads = (pads[0], pads[2], pads[1], pads[3])        # t, b, l, r
+        sh, sw = pair(stride)
+        stride = sh if sh == sw else (sh, sw)
         ins = [x]
-        if groups == 1:
-            ins.append(self.const("w", kernel_oihw.transpose(2, 3, 1, 0)))
-            kind = "conv2d"
-        elif groups == co == self.shapes[x][3] and cig == 1:
+        if groups > 1 and groups == self.shapes[x][3] and cig == 1:
             ins.append(self.const("w", kernel_oihw[:, 0].transpose(1, 2, 0)
-                                  [..., None]))
+                                  .reshape(kh, kw, groups, co // groups)))
             kind = "depthwise_conv2d"
         else:
-            raise ValueError(f"{WHAT}: grouped conv with {groups} groups of "
-                             f"{cig} channels has no TF/TFLite form")
+            ins.append(self.const("w", kernel_oihw.transpose(2, 3, 1, 0)))
+            kind = "conv2d"
         if bias is not None:
             ins.append(self.const("b", bias))
         return self.op(kind, ins, stride=stride, pads=tuple(pads))
@@ -199,7 +229,15 @@ class Emitter:
         return self.op("concat", list(xs), axis=3)
 
     def max_pool(self, x: str, k: int) -> str:
+        """SPP's and SPPF's pool: stride 1, SAME (-inf padding)."""
         return self.op("max_pool", [x], k=int(k))
+
+    def pad(self, x: str, top: int, bottom: int, left: int, right: int,
+            value: float = 0.0) -> str:
+        pads = ((0, 0), (top, bottom), (left, right), (0, 0))
+        if value == 0.0:
+            return self.op("pad", [x], pads=pads)
+        return self.op("pad", [x], pads=pads, value=float(value))
 
     def upsample(self, x: str, scale: int) -> str:
         return self.op("resize_nearest", [x], scale=scale)
@@ -356,6 +394,290 @@ def _emit_detect(g, xs, mod, nc, anchors, strides, hw_list, decode):
     return [g.op("concat", outs, axis=1)] if decode else levels
 
 
+# ------------------------------------------- the rows beyond the ONNX leg's
+
+def _bn(g, x, bn) -> str:
+    """An eval-mode BatchNorm the fold leaves: ``x * scale + shift`` with
+    scale = gamma / sqrt(var + eps), from its running statistics."""
+    scale = np32(bn.weight) / np.sqrt(np32(bn.running_var) + bn.eps)
+    shift = np32(bn.bias) - np32(bn.running_mean) * scale
+    return g.op("add", [g.op("mul", [x, g.const("bns", scale)]),
+                        g.const("bnb", shift)])
+
+
+def _conv_mod(g, x, conv: torch.nn.Conv2d) -> str:
+    """An ``nn.Conv2d`` by its own geometry (kernel, stride, padding,
+    groups; its bias if it has one)."""
+    ph, pw = conv.padding
+    return g.conv(x, np32(conv.weight),
+                  None if conv.bias is None else np32(conv.bias),
+                  stride=conv.stride, pads=(ph, pw, ph, pw),
+                  groups=conv.groups)
+
+
+def _cba(g, x, mod, act="silu") -> str:
+    """A ``ConvBnAct``, folded or with its BatchNorm kept."""
+    y = _conv_mod(g, x, mod.conv)
+    if mod.bn is not None:
+        y = _bn(g, y, mod.bn)
+    return g.act(y, act)
+
+
+def _bottleneck(g, x, mod) -> str:
+    y = _cba(g, _cba(g, x, mod.cv1), mod.cv2)
+    return g.add(x, y) if mod.add else y
+
+
+def _ghost_conv(g, x, mod, act="silu") -> str:
+    y = _cba(g, x, mod.cv1, act)
+    return g.concat([y, _cba(g, y, mod.cv2, act)])
+
+
+def _ghost_bottleneck(g, x, mod) -> str:
+    y = _ghost_conv(g, x, mod.conv1)
+    if mod.dw is not None:
+        y = _cba(g, y, mod.dw.conv, None)
+    y = _ghost_conv(g, y, mod.conv2, None)
+    sc = x if mod.stride != 2 else _cba(
+        g, _cba(g, x, mod.sc_dw.conv, None), mod.sc_pw, None)
+    return g.add(y, sc)
+
+
+def _bottleneck_csp(g, x, mod) -> str:
+    """cv1 -> the bottlenecks -> cv3 beside cv2, the kept BatchNorm over
+    their concat, LeakyReLU 0.1, cv4."""
+    y1 = _cba(g, x, mod.cv1)
+    for b in mod.m:
+        y1 = _bottleneck(g, y1, b)
+    y = g.concat([_conv_mod(g, y1, mod.cv3), _conv_mod(g, x, mod.cv2)])
+    return _cba(g, g.act(_bn(g, y, mod.bn), "leaky0.1"), mod.cv4)
+
+
+def _mix_conv(g, x, mod) -> str:
+    """One bias-free conv a kernel size over the whole input, the kept
+    BatchNorm over their concat, ``x + leaky_relu(., 0.1)``."""
+    y = _bn(g, g.concat([_conv_mod(g, x, m) for m in mod.m]), mod.bn)
+    return g.add(x, g.act(y, "leaky0.1"))
+
+
+def _cross_conv(g, x, mod) -> str:
+    """(1, k) then (k, 1), their BatchNorms kept (``_ConvBnKept``)."""
+    y = _cba(g, _cba(g, x, mod.cv1), mod.cv2)
+    return g.add(x, y) if mod.add else y
+
+
+def _vit_layer(g, x, layer) -> str:
+    """LayerNorm-free ViT layer: q/k/v, then the attention's own biased
+    projections, softmax(q k^T / sqrt(head_dim)) v, ``out``, residual;
+    ``fc2(fc1(x)) + x``."""
+    b, n, c = g.shapes[x]
+    heads = layer.num_heads
+    dk = c // heads
+
+    def proj(pre, lin):
+        t = g.reshape(g.linear(g.linear(x, pre), lin), (b, n, heads, dk))
+        return g.transpose(t, (0, 2, 1, 3))       # (B, h, N, dk)
+    q, k, v = (proj(layer.q, layer.ma.query), proj(layer.k, layer.ma.key),
+               proj(layer.v, layer.ma.value))
+    att = g.op("matmul", [q, g.transpose(k, (0, 1, 3, 2))])
+    att = g.op("softmax", [g.const_mul(att, 1.0 / math.sqrt(dk))])
+    o = g.reshape(g.transpose(g.op("matmul", [att, v]), (0, 2, 1, 3)),
+                  (b, n, c))
+    x = g.add(g.linear(o, layer.ma.out), x)
+    return g.add(g.linear(g.linear(x, layer.fc1), layer.fc2), x)
+
+
+def _c3tr(g, x, mod) -> str:
+    """C3 with ``VitTransformerBlock`` inside: its conv where c1 != c2,
+    the flattened tokens plus their linear position term, the layers."""
+    blk = mod.m
+    y1 = _cba(g, x, mod.cv1)
+    if blk.conv is not None:
+        y1 = _cba(g, y1, blk.conv)
+    b, h, w, c = g.shapes[y1]
+    p = g.reshape(y1, (b, h * w, c))
+    p = g.add(p, g.linear(p, blk.linear))
+    for layer in blk.tr:
+        p = _vit_layer(g, p, layer)
+    y1 = g.reshape(p, (b, h, w, c))
+    return _cba(g, g.concat([y1, _cba(g, x, mod.cv2)]), mod.cv3)
+
+
+def _bilinear(g, x, ho: int, wo: int) -> str:
+    """NHWC bilinear resize (half-pixel centres, edges clamped): the
+    (out, in) matrices of ``nn/resize.py`` one axis at a time, each a
+    matmul over the axis brought last."""
+    _, hi, wi, _ = g.shapes[x]
+    y = g.dense(g.transpose(x, (0, 1, 3, 2)),
+                _bilinear_weights(wi, wo).T)         # (B, H, C, wo)
+    y = g.dense(g.transpose(y, (0, 3, 2, 1)),
+                _bilinear_weights(hi, ho).T)         # (B, wo, C, ho)
+    return g.transpose(y, (0, 3, 1, 2))
+
+
+def _upsample_any(g, x, rl) -> str:
+    scale = upsample_scale(rl)
+    if upsample_mode(rl) == "nearest":
+        return g.upsample(x, scale)
+    _, h, w, _ = g.shapes[x]
+    return _bilinear(g, x, h * scale, w * scale)
+
+
+def _max_pool_row(g, x, rl) -> str:
+    """torch ``nn.MaxPool2d(k, s, p)`` as the JAX detector computes it:
+    -inf padding (``PadV2``), then a VALID pool."""
+    a = rl.args
+    k = a[0]
+    s = a[1] if len(a) > 1 and a[1] else k
+    p = a[2] if len(a) > 2 else 0
+    if p:
+        x = g.pad(x, p, p, p, p, value=-np.inf)
+    return g.op("max_pool", [x], k=int(k), stride=int(s), padding="VALID")
+
+
+def _rmsnorm(g, x, norm) -> str:
+    ms = g.op("mean", [g.op("mul", [x, x])], axes=(-1,))
+    r = g.op("rsqrt", [g.const_add(ms, norm.eps)])
+    return g.op("mul", [g.op("mul", [x, r]), g.const("rms",
+                                                     np32(norm.weight))])
+
+
+def _softplus(g, x) -> str:
+    """max(x, 0) + log(1 + exp(-|x|)), with -|x| = x - 2 max(x, 0): no
+    overflow, and builtins only (TFLite has no LOG1P or SOFTPLUS).  The
+    port's ``F.softplus`` returns x above 20 and ``jax.nn.softplus`` does
+    not: the two differ there by under 2.1e-9."""
+    r = g.op("relu", [x])
+    e = g.op("exp", [g.op("sub", [x, g.const_mul(r, 2.0)])])
+    return g.op("add", [r, g.op("log", [g.const_add(e, 1.0)])])
+
+
+def _scan(g, a, x) -> str:
+    """``nn/mamba.py:linear_recurrence`` unrolled: h[t] = a[t] h[t-1] +
+    x[t] over axis 1 by its ceil(log2 L) rounds, each slices, a product
+    and a concat (no loop op)."""
+    n, s = g.shapes[a][1], 1
+    while s < n:
+        head = g.slice_axis(x, 1, 0, s)
+        prod = g.op("mul", [g.slice_axis(a, 1, s, n),
+                            g.slice_axis(x, 1, 0, n - s)])
+        x = g.op("concat", [head, g.add(prod, g.slice_axis(x, 1, s, n))],
+                 axis=1)
+        if 2 * s < n:  # the last round's products of a are not read
+            a = g.op("concat", [g.slice_axis(a, 1, 0, s), g.op("mul", [
+                g.slice_axis(a, 1, s, n), g.slice_axis(a, 1, 0, n - s)])],
+                axis=1)
+        s *= 2
+    return x
+
+
+def _mamba_block(g, x, blk) -> str:
+    """``MambaBlock`` on (B, L, d): in_proj's halves, the causal depthwise
+    conv (left pad d_conv - 1 over a (B, 1, L, d_inner) view) and SiLU,
+    x_proj's three parts, dt_proj and softplus, exp(delta A), the scan,
+    the readout against C (a batched matmul summing d_state), D x, the
+    SiLU gate, out_proj."""
+    cfg = blk.cfg
+    b, n_tok, _ = g.shapes[x]
+    di, n, rank = cfg.d_inner, cfg.d_state, cfg.rank
+    w_in = np32(blk.in_proj.weight)                     # (2 di, d)
+    xs, z = g.dense(x, w_in[:di].T), g.dense(x, w_in[di:].T)
+    kern = np32(blk.conv1d_kernel)[:, 0, :].T[:, None, None, :]
+    xc = g.conv(g.reshape(xs, (b, 1, n_tok, di)), kern,
+                np32(blk.conv1d_bias), pads=(0, cfg.d_conv - 1, 0, 0),
+                groups=di)
+    xc = g.act(g.reshape(xc, (b, n_tok, di)), "silu")
+    w_x = np32(blk.x_proj.weight)                       # (rank + 2n, di)
+    dt = g.dense(xc, w_x[:rank].T)
+    bm = g.dense(xc, w_x[rank:rank + n].T)
+    cm = g.dense(xc, w_x[rank + n:].T)
+    delta = _softplus(g, g.linear(dt, blk.dt_proj))     # (B, L, di)
+    a = -np.exp(np32(blk.A_log))                        # (di, n)
+    da = g.op("exp", [g.op("mul", [g.reshape(delta, (b, n_tok, di, 1)),
+                                   g.const("A", a)])])
+    dbx = g.op("mul", [g.reshape(g.op("mul", [delta, xc]),
+                                 (b, n_tok, di, 1)),
+                       g.reshape(bm, (b, n_tok, 1, n))])
+    h = _scan(g, da, dbx)                               # (B, L, di, n)
+    y = g.reshape(g.op("matmul", [h, g.reshape(cm, (b, n_tok, n, 1))]),
+                  (b, n_tok, di))
+    y = g.add(y, g.op("mul", [xc, g.const("D", np32(blk.D))]))
+    return g.linear(g.op("mul", [y, g.act(z, "silu")]), blk.out_proj)
+
+
+def _mamba(g, x, stack) -> str:
+    for layer in stack.layers:
+        x = g.add(x, _mamba_block(g, _rmsnorm(g, x, layer.norm),
+                                  layer.mixer))
+    return x
+
+
+def _emit_mamba_fusion(g, rgb, ir, mod, h, w) -> list[str]:
+    """``MambaFusion``: both streams pooled to the grid's tokens (the RGB
+    tokens first), the forward stack plus the backward stack on the
+    reversed sequence, reversed back, ``norm_f``, each half resized back
+    to (h, w)."""
+    gh, gw = mod.grid
+    t = g.op("concat", [_pool_tokens(g, rgb, h, w, gh, gw),
+                        _pool_tokens(g, ir, h, w, gh, gw)], axis=1)
+    bwd = _mamba(g, g.op("reverse", [t], axis=1), mod.bwd)
+    out = g.add(_mamba(g, t, mod.fwd), g.op("reverse", [bwd], axis=1))
+    out = _rmsnorm(g, out, mod.norm_f)
+    b, _, c = g.shapes[out]
+    n = gh * gw
+    return [_bilinear(g, g.reshape(g.slice_axis(out, 1, lo, lo + n),
+                                   (b, gh, gw, c)), h, w)
+            for lo in (0, n)]
+
+
+def _repeated(g, fn):
+    """A handler of a row whose ``n > 1`` copies chain (the detector's
+    ``nn.Sequential``)."""
+    def handler(inp, mod, rl, hw):
+        x = inp
+        for m in (list(mod) if isinstance(mod, torch.nn.Sequential)
+                  else [mod]):
+            x = fn(g, x, m, rl)
+        return x
+    return handler
+
+
+def _act_arg(rl, i: int):
+    return rl.args[i] if len(rl.args) > i else "silu"
+
+
+def tf_rows(g) -> dict:
+    """The handlers of the rows only the TF legs take (the JAX package's
+    ONNX emitter refuses them, ``mmidet_tpu/deploy/onnx_export.py:454,
+    470``), and the Upsample rows in both modes."""
+    table = {
+        "DWConv": _repeated(g, lambda g, x, m, rl: _cba(g, x, m.conv,
+                                                        _act_arg(rl, 3))),
+        "GhostConv": _repeated(g, lambda g, x, m, rl: _ghost_conv(
+            g, x, m, _act_arg(rl, 3))),
+        "GhostBottleneck": _repeated(
+            g, lambda g, x, m, rl: _ghost_bottleneck(g, x, m)),
+        "CrossConv": _repeated(g, lambda g, x, m, rl: _cross_conv(g, x, m)),
+        "MixConv2d": _repeated(g, lambda g, x, m, rl: _mix_conv(g, x, m)),
+        "BottleneckCSP": _repeated(
+            g, lambda g, x, m, rl: _bottleneck_csp(g, x, m)),
+        "C3TR": _repeated(g, lambda g, x, m, rl: _c3tr(g, x, m)),
+        "nn.MaxPool2d": lambda inp, mod, rl, hw: _max_pool_row(g, inp, rl),
+        "nn.ZeroPad2d": lambda inp, mod, rl, hw: g.pad(
+            inp, rl.args[0][2], rl.args[0][3], rl.args[0][0],
+            rl.args[0][1]),
+        "Contract": lambda inp, mod, rl, hw: g.op(
+            "space_to_depth", [inp], block=int(rl.args[0])),
+        "Expand": lambda inp, mod, rl, hw: g.op(
+            "depth_to_space", [inp], block=int(rl.args[0])),
+        "MambaFusion": lambda inp, mod, rl, hw: _emit_mamba_fusion(
+            g, inp[0], inp[1], mod, *hw[0]),
+    }
+    table.update({m: lambda inp, mod, rl, hw: _upsample_any(g, inp, rl)
+                  for m in UPSAMPLE_ROWS})
+    return table
+
+
 def emit_graph(spec: ModelSpec, model: torch.nn.Module, img: int,
                batch: int = 1, with_decode: bool = True,
                dtype: str = "float32") -> TFGraph:
@@ -393,7 +715,13 @@ def emit_graph(spec: ModelSpec, model: torch.nn.Module, img: int,
     def detect(inp, mod, rl, in_hw):
         return _emit_detect(g, list(inp), mod, rl.args[0], rl.args[1],
                             spec.strides, list(in_hw), with_decode)
-    outs = walk(spec, folded, rows(g, gpt, detect), x,
-                xs[1] if two else None, img, WHAT)
+    table = rows(g, gpt, detect)
+    table.update(tf_rows(g))
+
+    def hw_of(v):
+        v = v[0] if isinstance(v, list) else v
+        return tuple(g.shapes[v][1:3])
+    outs = walk(spec, folded, table, x, xs[1] if two else None, img, WHAT,
+                hw_of=hw_of)
     return TFGraph([(n, (batch, img, img, 3), dtype) for n in names], outs,
                    g.ops, g.consts, g.shapes, g.dtypes)

@@ -31,53 +31,74 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pad_nhwc(x, kh, kw, s, same: bool, value=0.0):
+def _pad_nhwc(x, kh, kw, sh, sw, same: bool, value=0.0):
     if not same:
         return x
-    (t, b), (le, r) = _same_pads(x.shape[1], kh, s), \
-        _same_pads(x.shape[2], kw, s)
+    (t, b), (le, r) = _same_pads(x.shape[1], kh, sh), \
+        _same_pads(x.shape[2], kw, sw)
     return np.pad(x, ((0, 0), (t, b), (le, r), (0, 0)),
                   constant_values=value)
 
 
-def conv2d(x, w_hwio, s: int, same: bool):
+def conv2d(x, w_hwio, sh: int, sw: int, same: bool):
     """NHWC conv by im2col: patches in (kh, kw, cin) order against the
-    (kh*kw*cin, cout) filter."""
+    (kh*kw*cin, cout) filter; a filter of fewer input channels than ``x``
+    has is grouped (each group's outputs read its own channels)."""
     kh, kw, ci, co = w_hwio.shape
-    x = _pad_nhwc(x, kh, kw, s, same)
+    groups = x.shape[3] // ci
+    if groups > 1:
+        cg = co // groups
+        return np.concatenate([conv2d(
+            x[..., i * ci:(i + 1) * ci], w_hwio[..., i * cg:(i + 1) * cg],
+            sh, sw, same) for i in range(groups)], -1)
+    x = _pad_nhwc(x, kh, kw, sh, sw, same)
     b, h, w, _ = x.shape
-    ho, wo = (h - kh) // s + 1, (w - kw) // s + 1
-    if kh == kw == s == 1:
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
+    if kh == kw == sh == sw == 1:
         cols = x
     else:
-        cols = np.concatenate([x[:, i:i + s * ho:s, j:j + s * wo:s]
+        cols = np.concatenate([x[:, i:i + sh * ho:sh, j:j + sw * wo:sw]
                                for i in range(kh) for j in range(kw)], -1)
     return np.matmul(cols.reshape(-1, kh * kw * ci),
                      w_hwio.reshape(-1, co)).reshape(b, ho, wo, co)
 
 
-def depthwise_conv2d(x, w, s: int, same: bool):
+def depthwise_conv2d(x, w, sh: int, sw: int, same: bool):
     """w: (kh, kw, C, m); output channel c*m + j."""
     kh, kw, c, m = w.shape
-    x = _pad_nhwc(x, kh, kw, s, same)
+    x = _pad_nhwc(x, kh, kw, sh, sw, same)
     b, h, wd, _ = x.shape
-    ho, wo = (h - kh) // s + 1, (wd - kw) // s + 1
+    ho, wo = (h - kh) // sh + 1, (wd - kw) // sw + 1
     out = np.zeros((b, ho, wo, c, m), np.float32)
     for i in range(kh):
         for j in range(kw):
-            out += x[:, i:i + s * ho:s, j:j + s * wo:s, :, None] * w[i, j]
+            out += x[:, i:i + sh * ho:sh, j:j + sw * wo:sw, :, None] \
+                * w[i, j]
     return out.reshape(b, ho, wo, c * m)
 
 
-def max_pool(x, kh, kw, s: int, same: bool):
-    x = _pad_nhwc(x, kh, kw, s, same, -np.inf)
+def max_pool(x, kh, kw, sh: int, sw: int, same: bool):
+    x = _pad_nhwc(x, kh, kw, sh, sw, same, -np.inf)
     b, h, w, c = x.shape
-    ho, wo = (h - kh) // s + 1, (w - kw) // s + 1
+    ho, wo = (h - kh) // sh + 1, (w - kw) // sw + 1
     out = np.full((b, ho, wo, c), -np.inf, np.float32)
     for i in range(kh):
         for j in range(kw):
-            out = np.maximum(out, x[:, i:i + s * ho:s, j:j + s * wo:s])
+            out = np.maximum(out, x[:, i:i + sh * ho:sh, j:j + sw * wo:sw])
     return out
+
+
+def space_to_depth(x, s: int):
+    """TF's order: output channel (sh * s + sw) * C + c."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // s, s, w // s, s, c).transpose(
+        0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
+
+
+def depth_to_space(x, s: int):
+    b, h, w, c = x.shape
+    return x.reshape(b, h, w, s, s, c // (s * s)).transpose(
+        0, 1, 3, 2, 4, 5).reshape(b, h * s, w * s, c // (s * s))
 
 
 def resize_nearest(x, size):
@@ -125,7 +146,7 @@ _TF_BINARY = {"AddV2": np.add, "BiasAdd": np.add, "Sub": np.subtract,
 _TF_UNARY = {"Sigmoid": sigmoid, "Relu": lambda x: np.maximum(x, 0),
              "Relu6": lambda x: np.clip(x, 0, 6), "Erf": _erf,
              "Rsqrt": lambda x: 1.0 / np.sqrt(x), "Softmax": softmax,
-             "Identity": lambda x: x}
+             "Identity": lambda x: x, "Exp": np.exp, "Log": np.log}
 
 
 def _tf_node(sm, n, i):
@@ -140,10 +161,11 @@ def _tf_node(sm, n, i):
         return [np.where(i[0] >= 0, i[0], a["alpha"] * i[0])]
     if op in ("Conv2D", "DepthwiseConv2dNative"):
         fn = conv2d if op == "Conv2D" else depthwise_conv2d
-        return [fn(i[0], i[1], a["strides"][1], a["padding"] == b"SAME")]
+        return [fn(i[0], i[1], a["strides"][1], a["strides"][2],
+                   a["padding"] == b"SAME")]
     if op == "MaxPool":
-        k = a["ksize"]
-        return [max_pool(i[0], k[1], k[2], a["strides"][1],
+        k, s = a["ksize"], a["strides"]
+        return [max_pool(i[0], k[1], k[2], s[1], s[2],
                          a["padding"] == b"SAME")]
     if op == "ConcatV2":
         return [np.concatenate(i[:-1], axis=int(i[-1]))]
@@ -153,6 +175,15 @@ def _tf_node(sm, n, i):
         return [resize_nearest(i[0], i[1])]
     if op == "Pad":
         return [np.pad(i[0], [tuple(p) for p in i[1]])]
+    if op == "PadV2":
+        return [np.pad(i[0], [tuple(p) for p in i[1]],
+                       constant_values=i[2])]
+    if op == "ReverseV2":
+        return [np.flip(i[0], tuple(int(v) for v in i[1]))]
+    if op == "SpaceToDepth":
+        return [space_to_depth(i[0], a["block_size"])]
+    if op == "DepthToSpace":
+        return [depth_to_space(i[0], a["block_size"])]
     if op == "Reshape":
         return [i[0].reshape([int(v) for v in i[1]])]
     if op == "Transpose":
@@ -216,7 +247,8 @@ _FB_BINARY = {fb.ADD: np.add, fb.SUB: np.subtract, fb.MUL: np.multiply,
               fb.SQUARED_DIFFERENCE: lambda a, b: (a - b) ** 2}
 _FB_UNARY = {fb.LOGISTIC: sigmoid, fb.RELU: lambda x: np.maximum(x, 0),
              fb.RELU6: lambda x: np.clip(x, 0, 6), fb.GELU: gelu,
-             fb.RSQRT: lambda x: 1.0 / np.sqrt(x)}
+             fb.RSQRT: lambda x: 1.0 / np.sqrt(x), fb.EXP: np.exp,
+             fb.LOG: np.log}
 
 
 def _fb_op(code, o, i):
@@ -226,13 +258,14 @@ def _fb_op(code, o, i):
         return _FB_UNARY[code](i[0])
     same = o.get("padding") == fb.SAME
     if code == fb.CONV_2D:
-        y = conv2d(i[0], i[1].transpose(1, 2, 3, 0), o["stride_h"], same)
+        y = conv2d(i[0], i[1].transpose(1, 2, 3, 0), o["stride_h"],
+                   o["stride_w"], same)
         return y + i[2] if i[2] is not None else y
     if code == fb.DEPTHWISE_CONV_2D:
         _, kh, kw, cm = i[1].shape
         m = o["depth_multiplier"]
         y = depthwise_conv2d(i[0], i[1].reshape(kh, kw, cm // m, m),
-                             o["stride_h"], same)
+                             o["stride_h"], o["stride_w"], same)
         return y + i[2] if i[2] is not None else y
     if code == fb.FULLY_CONNECTED:
         if not o.get("keep_num_dims"):
@@ -247,13 +280,21 @@ def _fb_op(code, o, i):
         return np.concatenate(i, axis=o["axis"])
     if code == fb.MAX_POOL_2D:
         return max_pool(i[0], o["filter_height"], o["filter_width"],
-                        o["stride_h"], same)
+                        o["stride_h"], o["stride_w"], same)
     if code == fb.RESIZE_NEAREST_NEIGHBOR:
         if o.get("align_corners") or o.get("half_pixel_centers"):
             raise NotImplementedError("RESIZE_NEAREST_NEIGHBOR's options")
         return resize_nearest(i[0], i[1])
     if code == fb.PAD:
         return np.pad(i[0], [tuple(p) for p in i[1]])
+    if code == fb.PADV2:
+        return np.pad(i[0], [tuple(p) for p in i[1]], constant_values=i[2])
+    if code == fb.REVERSE_V2:
+        return np.flip(i[0], tuple(int(v) for v in i[1]))
+    if code == fb.SPACE_TO_DEPTH:
+        return space_to_depth(i[0], o["block_size"])
+    if code == fb.DEPTH_TO_SPACE:
+        return depth_to_space(i[0], o["block_size"])
     if code == fb.RESHAPE:
         return i[0].reshape([int(v) for v in i[1]])
     if code == fb.TRANSPOSE:

@@ -62,9 +62,11 @@ OUT_ARG = {"Const": "output", "Identity": "output", "Conv2D": "output",
            "Relu6": "activations", "LeakyRelu": "activations", "Erf": "y",
            "ConcatV2": "output", "MaxPool": "output",
            "ResizeNearestNeighbor": "resized_images", "Pad": "output",
-           "Reshape": "output", "Transpose": "y", "BatchMatMulV2": "output",
-           "Softmax": "softmax", "Mean": "output", "Rsqrt": "y",
-           "StridedSlice": "output", "Cast": "y"}
+           "PadV2": "output", "Reshape": "output", "Transpose": "y",
+           "BatchMatMulV2": "output", "Softmax": "softmax", "Mean": "output",
+           "Rsqrt": "y", "StridedSlice": "output", "Cast": "y", "Exp": "y",
+           "Log": "y", "ReverseV2": "output", "SpaceToDepth": "output",
+           "DepthToSpace": "output"}
 
 
 # ------------------------------------------------------------ CRC-32C
@@ -328,6 +330,11 @@ def function_spec(args: list[str], kwonly: list[str],
 
 # ---------------------------------------------------- TFGraph -> nodes
 
+def pair(v) -> tuple[int, int]:
+    """A graph op's ``stride`` (an int or (h, w)) as (h, w)."""
+    return (int(v), int(v)) if np.isscalar(v) else (int(v[0]), int(v[1]))
+
+
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
@@ -359,14 +366,14 @@ class _Nodes:
 
 
 def _padded(n: _Nodes, name, x, xshape, pads, k, s):
-    """(input ref, padding) of a conv: SAME or VALID where one of them
-    gives ``pads`` (top, bottom, left, right), else a ``Pad`` node and
-    VALID."""
+    """(input ref, padding) of a conv with strides ``s`` (h, w): SAME or
+    VALID where one of them gives ``pads`` (top, bottom, left, right),
+    else a ``Pad`` node and VALID."""
     t, b, le, r = pads
     if not any(pads):
         return x, "VALID"
-    if ((t, b) == _same_pads(xshape[1], k[0], s)
-            and (le, r) == _same_pads(xshape[2], k[1], s)):
+    if ((t, b) == _same_pads(xshape[1], k[0], s[0])
+            and (le, r) == _same_pads(xshape[2], k[1], s[1])):
         return x, "SAME"
     shape = (xshape[0], xshape[1] + t + b, xshape[2] + le + r, xshape[3])
     y = n.node(f"{name}_pad", "Pad", [x, n.ints(f"{name}_paddings", [
@@ -378,7 +385,7 @@ def _padded(n: _Nodes, name, x, xshape, pads, k, s):
 _BINARY = {"add": "AddV2", "sub": "Sub", "mul": "Mul", "div": "RealDiv",
            "squared_difference": "SquaredDifference"}
 _UNARY = {"sigmoid": "Sigmoid", "relu": "Relu", "rsqrt": "Rsqrt",
-          "softmax": "Softmax"}
+          "softmax": "Softmax", "exp": "Exp", "log": "Log"}
 F32 = ("type", DT_FLOAT)
 
 
@@ -394,13 +401,13 @@ def body_nodes(graph) -> list[TFNode]:
         ins = [n.ref[i] for i in op.inputs]
         if k in ("conv2d", "depthwise_conv2d"):
             kshape = shapes[op.inputs[1]][:2]
+            sh, sw = pair(a["stride"])
             x, padding = _padded(n, out, ins[0], shapes[op.inputs[0]],
-                                 a["pads"], kshape, a["stride"])
-            s = a["stride"]
+                                 a["pads"], kshape, (sh, sw))
             tf_op = "Conv2D" if k == "conv2d" else "DepthwiseConv2dNative"
             name = f"{out}_conv" if len(ins) > 2 else out
             y = n.node(name, tf_op, [x, ins[1]], shape, T=F32,
-                       strides=("list_i", [1, s, s, 1]),
+                       strides=("list_i", [1, sh, sw, 1]),
                        padding=("s", padding), data_format=("s", "NHWC"),
                        dilations=("list_i", [1, 1, 1, 1]))
             if len(ins) > 2:
@@ -442,19 +449,34 @@ def body_nodes(graph) -> list[TFNode]:
                 f"{out}_axis", a["axis"])], shape, N=("i", len(ins)),
                 T=F32, Tidx=("type", DT_INT32))
         elif k == "max_pool":
-            kk = a["k"]
+            kk, s = a["k"], a.get("stride", 1)
             y = n.node(out, "MaxPool", ins, shape, T=F32,
                        ksize=("list_i", [1, kk, kk, 1]),
-                       strides=("list_i", [1, 1, 1, 1]),
-                       padding=("s", "SAME"), data_format=("s", "NHWC"))
+                       strides=("list_i", [1, s, s, 1]),
+                       padding=("s", a.get("padding", "SAME")),
+                       data_format=("s", "NHWC"))
         elif k == "resize_nearest":
             y = n.node(out, "ResizeNearestNeighbor", ins + [n.ints(
                 f"{out}_size", shape[1:3])], shape, T=F32,
                 align_corners=("b", False), half_pixel_centers=("b", False))
+        elif k == "pad" and "value" in a:     # a max pool's -inf border
+            y = n.node(out, "PadV2", ins + [
+                n.ints(f"{out}_paddings", a["pads"]),
+                n.const(f"{out}_value", np.float32(a["value"]))], shape,
+                T=F32, Tpaddings=("type", DT_INT32))
         elif k == "pad":
             y = n.node(out, "Pad", ins + [n.ints(f"{out}_paddings",
                                                  a["pads"])], shape, T=F32,
                        Tpaddings=("type", DT_INT32))
+        elif k == "reverse":
+            y = n.node(out, "ReverseV2", ins + [n.ints(f"{out}_axis", [
+                a["axis"] % len(shape)])], shape, T=F32,
+                Tidx=("type", DT_INT32))
+        elif k in ("space_to_depth", "depth_to_space"):
+            y = n.node(out, "SpaceToDepth" if k == "space_to_depth"
+                       else "DepthToSpace", ins, shape, T=F32,
+                       block_size=("i", a["block"]),
+                       data_format=("s", "NHWC"))
         elif k == "reshape":
             y = n.node(out, "Reshape", ins + [n.ints(f"{out}_shape", shape)],
                        shape, T=F32, Tshape=("type", DT_INT32))

@@ -36,12 +36,13 @@ SCHEMA_VERSION = 3
 SIGNATURE_KEY = "serving_default"
 
 # BuiltinOperator
-ADD, CONCATENATION, CONV_2D, DEPTHWISE_CONV_2D, FULLY_CONNECTED, \
-    LOGISTIC, MAX_POOL_2D, MUL, RELU, RELU6, RESHAPE, SOFTMAX, PAD, \
-    TRANSPOSE, MEAN, SUB, DIV, STRIDED_SLICE, RSQRT, \
-    RESIZE_NEAREST_NEIGHBOR, LEAKY_RELU, SQUARED_DIFFERENCE, BATCH_MATMUL, \
-    GELU = (0, 2, 3, 4, 9, 14, 17, 18, 19, 21, 22, 25, 34, 39, 40, 41, 42,
-            45, 76, 97, 98, 99, 126, 150)
+ADD, CONCATENATION, CONV_2D, DEPTH_TO_SPACE, DEPTHWISE_CONV_2D, \
+    FULLY_CONNECTED, LOGISTIC, MAX_POOL_2D, MUL, RELU, RELU6, RESHAPE, \
+    SOFTMAX, SPACE_TO_DEPTH, PAD, TRANSPOSE, MEAN, SUB, DIV, STRIDED_SLICE, \
+    EXP, PADV2, LOG, RSQRT, RESIZE_NEAREST_NEIGHBOR, LEAKY_RELU, \
+    SQUARED_DIFFERENCE, REVERSE_V2, BATCH_MATMUL, GELU = (
+        0, 2, 3, 5, 4, 9, 14, 17, 18, 19, 21, 22, 25, 26, 34, 39, 40, 41,
+        42, 45, 47, 60, 73, 76, 97, 98, 99, 105, 126, 150)
 PLACEHOLDER_FOR_GREATER_OP_CODES = 127
 BUILTIN_NAMES = {
     ADD: "ADD", CONCATENATION: "CONCATENATION", CONV_2D: "CONV_2D",
@@ -53,7 +54,9 @@ BUILTIN_NAMES = {
     STRIDED_SLICE: "STRIDED_SLICE", RSQRT: "RSQRT",
     RESIZE_NEAREST_NEIGHBOR: "RESIZE_NEAREST_NEIGHBOR",
     LEAKY_RELU: "LEAKY_RELU", SQUARED_DIFFERENCE: "SQUARED_DIFFERENCE",
-    BATCH_MATMUL: "BATCH_MATMUL", GELU: "GELU"}
+    BATCH_MATMUL: "BATCH_MATMUL", GELU: "GELU",
+    DEPTH_TO_SPACE: "DEPTH_TO_SPACE", SPACE_TO_DEPTH: "SPACE_TO_DEPTH",
+    EXP: "EXP", PADV2: "PADV2", LOG: "LOG", REVERSE_V2: "REVERSE_V2"}
 
 # TensorType
 FLOAT32, INT32 = 0, 2
@@ -81,6 +84,7 @@ OPTIONS = {
                                   ("fused_activation", 1, "b")]),
     "AddOptions": (11, [("fused_activation", 0, "b")]),
     "ReshapeOptions": (17, [("new_shape", 0, "[i")]),
+    "SpaceToDepthOptions": (19, [("block_size", 0, "i")]),
     "MulOptions": (21, [("fused_activation", 0, "b")]),
     "PadOptions": (22, []),
     "TransposeOptions": (26, []),
@@ -91,10 +95,13 @@ OPTIONS = {
                                  ("ellipsis_mask", 2, "i"),
                                  ("new_axis_mask", 3, "i"),
                                  ("shrink_axis_mask", 4, "i")]),
+    "PadV2Options": (43, []),
     "ResizeNearestNeighborOptions": (74, [("align_corners", 0, "?"),
                                           ("half_pixel_centers", 1, "?")]),
     "LeakyReluOptions": (75, [("alpha", 0, "f")]),
     "SquaredDifferenceOptions": (76, []),
+    "ReverseV2Options": (81, []),
+    "DepthToSpaceOptions": (94, [("block_size", 0, "i")]),
     "BatchMatMulOptions": (101, [("adj_x", 0, "?"), ("adj_y", 1, "?")]),
     "GeluOptions": (116, [("approximate", 0, "?")]),
 }
@@ -560,7 +567,7 @@ def convert(sm) -> Model:
                   approximate=False)
         elif n.op in ("Conv2D", "DepthwiseConv2dNative"):
             w = const_of(ins[1])
-            s = n.attrs["strides"][1]
+            s = n.attrs["strides"]
             b = bias_of.get(n.name)
             if n.op == "Conv2D":
                 wt = cv.tensor(None, f"{n.name}/filter",
@@ -573,7 +580,7 @@ def convert(sm) -> Model:
                 co = c * m
             bt = cv.tensor(None, f"{n.name}/bias", np.zeros(co, np.float32)
                            if b is None else b)
-            common = dict(padding=pad_of(n), stride_w=s, stride_h=s,
+            common = dict(padding=pad_of(n), stride_w=s[2], stride_h=s[1],
                           fused_activation=0, dilation_w=1, dilation_h=1)
             if n.op == "Conv2D":
                 cv.op(CONV_2D, [t_in(ins[0]), wt, bt], [out],
@@ -628,6 +635,20 @@ def convert(sm) -> Model:
             cv.op(PAD, [t_in(ins[0]), ints(f"{n.name}/paddings",
                                            const_of(ins[1]))], [out],
                   "PadOptions")
+        elif n.op == "PadV2":
+            cv.op(PADV2, [t_in(ins[0]), ints(f"{n.name}/paddings",
+                                             const_of(ins[1])),
+                          t_in(ins[2])], [out], "PadV2Options")
+        elif n.op == "ReverseV2":
+            cv.op(REVERSE_V2, [t_in(ins[0]), ints(f"{n.name}/axis",
+                                                  const_of(ins[1]))], [out],
+                  "ReverseV2Options")
+        elif n.op in ("SpaceToDepth", "DepthToSpace"):
+            code, opt = (SPACE_TO_DEPTH, "SpaceToDepthOptions") \
+                if n.op == "SpaceToDepth" else (DEPTH_TO_SPACE,
+                                                "DepthToSpaceOptions")
+            cv.op(code, [t_in(ins[0])], [out], opt,
+                  block_size=int(n.attrs["block_size"]))
         elif n.op == "Reshape":
             shape = [int(v) for v in const_of(ins[1])]
             cv.op(RESHAPE, [t_in(ins[0]), ints(f"{n.name}/shape", shape)],
@@ -681,4 +702,4 @@ _BINARY = {"AddV2": (ADD, "AddOptions"), "BiasAdd": (ADD, "AddOptions"),
            "SquaredDifference": (SQUARED_DIFFERENCE,
                                  "SquaredDifferenceOptions")}
 _UNARY = {"Sigmoid": LOGISTIC, "Relu": RELU, "Relu6": RELU6,
-          "Rsqrt": RSQRT}
+          "Rsqrt": RSQRT, "Exp": EXP, "Log": LOG}

@@ -12,12 +12,14 @@ import functools
 import os
 import pickle
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mmidet_tpu.deploy import export as jax_export
 from mmidet_tpu.deploy import onnx_proto as jax_proto
@@ -32,17 +34,20 @@ from mmidet_tpu_torch import hub
 from mmidet_tpu_torch.bridge import from_jax_variables
 from mmidet_tpu_torch.cli import val
 from mmidet_tpu_torch.deploy import (export, onnx_np, onnx_proto, serve,
-                                     tf_np, tf_proto, tflite_fb)
+                                     tf_graph, tf_np, tf_proto, tflite_fb)
 from mmidet_tpu_torch.deploy.onnx_export import export_onnx
 from mmidet_tpu_torch.models.detector import TwoStreamDetector
+from mmidet_tpu_torch.models.spec import load_yolo_yaml
 from mmidet_tpu_torch.models.zoo import single_stream_spec, two_stream_spec
 from mmidet_tpu_torch.nn import cem_cuda, fusion_cuda
 from mmidet_tpu_torch.nn import transformer_cuda as tc
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
+from mmidet_tpu_torch.nn.layers import contract, expand
 from mmidet_tpu_torch.train import checkpoint
 
 from test_torch_port_cuda import write_reference_checkpoint
 from test_torch_port_train import _seeded, _threads  # noqa: F401
+from test_torch_port_zoo_layers import _yaml
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)  # the detector tests' f32 gate
 ONNX_TOL = 2e-3  # the JAX package's ONNX gate, relative to max(1, |ref|)
@@ -370,7 +375,10 @@ def test_onnx_graph_matches_jax(folded_cases, name, tmp_path):
 def test_onnx_refuses_mamba(folded_cases, tmp_path):
     """Both emitters refuse a MambaFusion row.  The mamba grammar is the
     gpt4 one with MambaFusion at each level, so JAX's emitter reaches its
-    first MambaFusion row on the gpt4 case's variables."""
+    first MambaFusion row on the gpt4 case's variables.  The port's
+    emitter refuses the rows only the YAML grammar names too (the JAX
+    emitter's catch-all, ``mmidet_tpu/deploy/onnx_export.py:470``), which
+    the TF legs take: the reference YAML's first, ``nn.ZeroPad2d``."""
     with pytest.raises(ValueError, match="MambaFusion"):
         jax_export_onnx(jax_two("t", "mamba", nc=2), folded_cases["gpt4"][3],
                         IMG, str(tmp_path / "j.onnx"))
@@ -379,6 +387,11 @@ def test_onnx_refuses_mamba(folded_cases, tmp_path):
     with pytest.raises(ValueError, match="MambaFusion"):
         export_onnx(two_stream_spec("t", "mamba", nc=2), model, IMG,
                     str(tmp_path / "p.onnx"))
+    rows = load_yolo_yaml(_yaml())
+    with pytest.raises(ValueError, match="nn.ZeroPad2d"):
+        export_onnx(rows, fold_batchnorm(TwoStreamDetector(
+            rows, use_cem=False)), IMG, str(tmp_path / "y.onnx"),
+            use_cem=False)
 
 
 # ------------------------------------------------------ the ops, exported
@@ -683,14 +696,112 @@ def test_tf_primitives_match_torch(tf, tmp_path):
                                    rtol=1e-5, atol=1e-5)
 
 
+def _prim_graph(x_shape, build):
+    g = tf_graph.Emitter()
+    g.shapes["rgb"], g.dtypes["rgb"] = tuple(x_shape), "float32"
+    y = build(g, "rgb")
+    return tf_graph.TFGraph([("rgb", tuple(x_shape), "float32")], [y],
+                            g.ops, g.consts, g.shapes, g.dtypes)
+
+
+def _nchw(fn):
+    """An NCHW torch function on NHWC tensors."""
+    return lambda x: fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def _primitive_cases():
+    """(input NHWC shape, emitter, torch reference, the TFLite builtin it
+    must map to) a new primitive."""
+    gen = torch.Generator().manual_seed(5)
+    w_g = torch.randn(6, 2, 3, 3, generator=gen)        # 2 groups of 2 in
+    w_m = torch.randn(8, 1, 5, 5, generator=gen)        # multiplier 2
+    w_x = torch.randn(5, 4, 1, 3, generator=gen)        # (1, 3), (1, 2)
+    b = torch.randn(8, generator=gen)
+    return {
+        "max_pool_padded": (
+            (2, 9, 9, 4),
+            lambda g, x: tf_graph._max_pool_row(
+                g, x, types.SimpleNamespace(args=(3, 2, 1))),
+            _nchw(lambda x: F.max_pool2d(x, 3, 2, 1)), "PADV2"),
+        "zero_pad_max_pool": (
+            (2, 7, 7, 4),
+            lambda g, x: g.op("max_pool", [g.pad(x, 0, 1, 0, 1)], k=2,
+                              stride=1, padding="VALID"),
+            _nchw(lambda x: F.max_pool2d(F.pad(x, (0, 1, 0, 1)), 2, 1)),
+            "MAX_POOL_2D"),
+        "grouped_conv": (
+            (2, 8, 9, 4),
+            lambda g, x: g.conv(x, w_g.numpy(), b[:6].numpy(), stride=2,
+                                pads=(1, 1, 1, 1), groups=2),
+            _nchw(lambda x: F.conv2d(x, w_g, b[:6], 2, 1, groups=2)),
+            "CONV_2D"),
+        "depthwise_multiplier": (
+            (2, 8, 8, 4),
+            lambda g, x: g.conv(x, w_m.numpy(), b.numpy(), pads=(2, 2, 2, 2),
+                                groups=4),
+            _nchw(lambda x: F.conv2d(x, w_m, b, 1, 2, groups=4)),
+            "DEPTHWISE_CONV_2D"),
+        "non_square_conv": (
+            (2, 7, 10, 4),
+            lambda g, x: g.conv(x, w_x.numpy(), None, stride=(1, 2),
+                                pads=(0, 1, 0, 1)),
+            _nchw(lambda x: F.conv2d(x, w_x, None, (1, 2), (0, 1))),
+            "CONV_2D"),
+        "softplus": (
+            (2, 3, 4, 8),
+            lambda g, x: tf_graph._softplus(g, g.const_mul(x, 30.0)),
+            lambda x: torch.logaddexp(30.0 * x, torch.zeros(())), "LOG"),
+        "reverse": (
+            (2, 5, 6, 3),
+            lambda g, x: g.op("exp", [g.op("reverse", [x], axis=1)]),
+            lambda x: torch.exp(x.flip(1)), "REVERSE_V2"),
+        "space_to_depth": (
+            (2, 8, 6, 3),
+            lambda g, x: g.op("space_to_depth", [x], block=2),
+            _nchw(lambda x: contract(x, 2)), "SPACE_TO_DEPTH"),
+        "depth_to_space": (
+            (2, 4, 3, 12),
+            lambda g, x: g.op("depth_to_space", [x], block=2),
+            _nchw(lambda x: expand(x, 2)), "DEPTH_TO_SPACE"),
+        "bilinear": (
+            (2, 5, 6, 3),
+            lambda g, x: tf_graph._bilinear(g, x, 10, 12),
+            _nchw(lambda x: F.interpolate(x, size=(10, 12), mode="bilinear",
+                                          align_corners=False)),
+            "FULLY_CONNECTED"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_primitive_cases()))
+def test_new_primitives_match_torch(tf, tmp_path, case):
+    """Each primitive the new rows added (the -inf ``PadV2`` before a
+    strided VALID pool, a zero pad before a stride-1 pool, a grouped conv,
+    a depthwise conv with multiplier 2, a (1, 3) conv at strides (1, 2),
+    exp/log in softplus, reverse, space to depth and back, the separable
+    bilinear resize) written, converted and run by TensorFlow, TFLite and
+    ``tf_np`` against torch."""
+    shape, build, ref_fn, builtin = _primitive_cases()[case]
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(6))
+    graph = _prim_graph(shape, build)
+    sm = tf_proto.write_savedmodel(str(tmp_path / "sm"), graph)
+    lite = export.export_tflite(sm, str(tmp_path / "p.tflite"))
+    assert builtin in {tflite_fb.BUILTIN_NAMES[c]
+                       for c in tflite_fb.load(lite).opcodes}
+    with torch.no_grad():
+        ref = ref_fn(x).numpy()
+    feeds = {"rgb": x.numpy()}
+    for got in (tf.saved_model.load(sm).serve(x.numpy()).numpy(),
+                tflite_run(tf, lite, feeds)["output_0"],
+                tf_np.run(tf_proto.load(sm), feeds)["output_0"],
+                tf_np.run(tflite_fb.load(lite), feeds)["output_0"]):
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_tf_export_refuses(folded_cases, tmp_path):
-    """``ValueError``: a MambaFusion row (naming it), ``native=True`` in
-    both entry points, a quantized (s8-storage) module, and a
-    single-stream export of a two-stream model."""
+    """``ValueError``: ``native=True`` in both entry points, a quantized
+    (s8-storage) module, and a single-stream export of a two-stream
+    model."""
     from mmidet_tpu_torch.nn.quant import make_quant_deploy
-    mamba = TwoStreamDetector(two_stream_spec("t", "mamba", nc=2))
-    with pytest.raises(ValueError, match="MambaFusion"):
-        export.export_savedmodel(str(tmp_path / "m"), mamba, IMG)
     model = folded_cases["add"][4]
     with pytest.raises(ValueError, match="native=True"):
         export.export_savedmodel(str(tmp_path / "n"), model, IMG,
@@ -705,7 +816,7 @@ def test_tf_export_refuses(folded_cases, tmp_path):
     with pytest.raises(ValueError, match="two-stream"):
         export.export_savedmodel(str(tmp_path / "s"), model, IMG,
                                  two_stream=False)
-    assert not os.path.exists(tmp_path / "m")
+    assert not os.path.exists(tmp_path / "q")
 
 
 def test_tf_codecs_round_trip():
