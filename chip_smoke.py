@@ -81,11 +81,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      ``MosaicLoader``, card against CPU with the same draws, on the
      default hyp's axis-aligned path and on the general warp (degrees 10,
      shear 2), and its ms a batch; ``train_mosaic_path``: ``train_path``
-     with mosaic on, the JAX package's default, through ``MosaicLoader``
-     (the loader's waits timed in both); ``train_flags_path``: one epoch
-     each of ``quad``, ``multi_scale`` and ``rect`` at 320 px, the shapes
-     every step saw against the option's, each evaluation checked and
-     counted as ``train_path``'s; ``remat``: one bf16 micro-step of the flagship at 640, batch
+     with mosaic on, the JAX package's default, through ``MosaicLoader``,
+     for one epoch (the loader's waits timed in both); ``train_flags_path``:
+     one epoch each of ``quad``, ``multi_scale`` and ``rect`` at 320 px on
+     the first 16 pairs (two steps each), the shapes every step saw
+     against the option's, each evaluation checked and counted as
+     ``train_path``'s; ``remat``: one bf16 micro-step of the flagship at 640, batch
      8, with remat "", "dots" and "full" (ms, peak memory), and in f32 at
      128 px each remat step against the plain one;
   13. ``serve_path``: the serving front end as a user runs it: the
@@ -215,12 +216,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
      (the shards' sizes); (e) ``BatchingService`` over ``[card, card]``
      (max_batch 8), 8 requests at once, records identical to one device's
      at max_batch 4;
-  27. the ``kernels`` summary line, the card line, and the final
+  27. ``s8_gate_path`` (after ``hub_path``): ``tools/s8_gate.py``'s
+     ``train_arm`` and ``gate_record`` at the JAX package's chip settings
+     (yolov5s_add, 160 px, 8 pairs, batch 8, f32, ``S8_EPOCHS``): the
+     float deploy's and the s8-storage deploy's mAP50 on the same EMA
+     weights under the gate protocol, every K2 call of both evaluations
+     checked and counted (the gate loader's 192 x 192 batches give pools
+     of 4536 boxes: K2's large form); asserts float mAP50 >= 0.5, an ``out_scale`` on
+     every fused conv, int8 mAP50 > 0 and delta >= -0.10 (the tool's own
+     0.02 verdict printed);
+  28. ``resume_path``: a yolov5s_add run at 64 px stopped after the first
+     of two epochs, beside a JAX-package run; ``tools.resume_all`` names
+     and skips the JAX run and resumes the port's from ``epoch0.pt``'s
+     state to the final epoch; a second ``resume_all`` finds nothing;
+  29. the ``kernels`` summary line, the card line, and the final
      ``{"ok": true, "device": ...}`` line.
-Every path (8-21, 22-24, 26) runs with every launch count set to 0 just
-before it and read just after; a kernel of the path that did not launch
-fails the run.  Phases 22-26 run after ``remat`` (step 12), before
-``serve_path``.
+Every path (8-21, 22-24, 26-28) runs with every launch count set to 0
+just before it and read just after; a kernel of the path that did not
+launch fails the run.  Phases 22-26 run after ``remat`` (step 12), before
+``serve_path``; 27 and 28 after ``hub_path`` (step 15).
 Times: ``ms`` is a CUDA-event median around each call (the host's time
 between launches included, as a caller sees it); ``device_ms`` queues the
 call behind a spin kernel so that only the card's time counts.
@@ -2341,6 +2355,220 @@ def phase_hub_path(torch, dev, card: str):
     return rec
 
 
+# ------------------------------------------------------- phases 27-28
+# s8_gate_path: the JAX package's chip settings of tools/s8_gate.py (s
+# scale, 160 px, 8 pairs, batch 8, f32).  S8_EPOCHS: on an H100 the float
+# deploy's gate-protocol mAP50 read 0.000 at 250 epochs, 0.273 at 600 and
+# 0.728 at 1000 (about 0.1 s an epoch, one step each), and 0.8078 at 1000
+# on every run once the tool trained on deterministic cuDNN, so 1000 is
+# the depth that clears S8_FLOAT_MIN with room (the JAX record took 1500)
+S8_EPOCHS = 1000
+S8_IMG = 160
+S8_FLOAT_MIN = 0.5              # converged: two zero mAP50s cannot pass
+# the regression band: int8 - float mAP50.  The JAX package's converged
+# TPU record is -0.0544 (s scale, 160 px, 1500 epochs); twice that catches
+# an int8 deploy that lost its scales or clips (a x0.5 clip read -0.49 on
+# the TPU) without failing a correct port on rounding jitter
+S8_DELTA_MIN = -0.10
+S8_TOOL_GATE = 0.02             # the tool's own |delta| verdict (printed)
+S8_DATA = ROOT / "runs" / "chip_smoke_s8"  # git-ignored; removed after
+
+
+def phase_s8_gate_path(torch, dev, card: str):
+    """The s8-storage deploy's accuracy gate as ``tools/s8_gate.py`` runs
+    it: ``train_arm`` trains yolov5s_add to convergence on the synthetic
+    set (augmentation, mosaic and aux losses off, f32), then
+    ``gate_record`` evaluates the EMA weights through the float deploy and
+    through ``make_quant_deploy`` (calibrated on the gate loader's first
+    batch) under the gate protocol; every K2 call of both evaluations held
+    against its plain version (``checked_kernels``) and counted, the
+    trainer's final evaluation counted.  Asserts convergence (float mAP50
+    >= ``S8_FLOAT_MIN``), an ``out_scale`` on every fused conv of the int8
+    model, int8 mAP50 > 0 and delta >= ``S8_DELTA_MIN``."""
+    import shutil
+    from unittest import mock
+
+    from mmidet_tpu_torch.models.detector import TwoStreamDetector
+    from mmidet_tpu_torch.nn import quant as quant_mod
+    from mmidet_tpu_torch.nn.layers import ConvBnAct
+    from mmidet_tpu_torch.ops import nms_cuda
+    from mmidet_tpu_torch.tools import s8_gate
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(S8_DATA, ignore_errors=True)
+    # the tool as a user runs it: a fresh process's TF32 defaults (cuDNN
+    # on, matmul off), which earlier phases leave cuDNN's switched off.
+    # The gate's result depends on them: trained with cuDNN's TF32 off, the
+    # deterministic run's weights read mAP50 0.755 through PairedLoader at
+    # 160 and 0.0 through the gate's RectLoader (192 x 192 batches, the
+    # images shifted 16 px), a model fitted to 8 unaugmented pairs at
+    # fixed positions; with the defaults, 0.8078 on every run
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        zero_counts()
+        res = s8_gate.train_arm(S8_EPOCHS, S8_IMG, "s", 8, 8, "float32",
+                                str(S8_DATA), 50, device=dev)
+        torch.cuda.synchronize()
+        # the train steps launch no kernel; the final epoch's evaluation
+        # (one val batch) launches K2 once
+        train_launches = read_counts(nms_greedy=1)
+        t_train = time.perf_counter() - t_phase
+        quantized = []
+
+        def capture(*a, **k):
+            quantized.append(real_quant(*a, **k))
+            return quantized[-1]
+        real_quant = quant_mod.make_quant_deploy
+        checks, paths = [], []
+        zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(quant_mod, "make_quant_deploy", capture), \
+                checked_kernels(torch, checks, paths):
+            rec = s8_gate.gate_record(
+                TwoStreamDetector(res["spec"], aux_mode="off"),
+                res["deploy"], res["data"], S8_IMG, 8, S8_TOOL_GATE,
+                device=dev, epochs=S8_EPOCHS, name="yolov5s_add")
+        torch.cuda.synchronize()
+        t_gate = time.perf_counter() - t0
+        checked = check_summary(checks)
+        # RectLoader's 192 x 192 batches give pools of 4536 boxes: K2's
+        # large form, which counts among K2's launches and apart
+        pools = [c["shape"][1] for c in checks if c["kernel"] == "nms_greedy"]
+        n_k2 = len(pools)
+        launches = read_counts(nms_greedy=n_k2, nms_greedy_large=sum(
+            k > nms_cuda.SMALL_POOL for k in pools))
+        convs = [m for m in quantized[0].modules()
+                 if isinstance(m, ConvBnAct)]
+        scaled = sum(m.quant and m.bn is None and "out_scale" in m._buffers
+                     for m in convs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(S8_DATA, ignore_errors=True)
+    out = {"phase": "s8_gate_path", "card": card, "model": "yolov5s_add",
+           "img": S8_IMG, "pairs": 8, "batch": 8, "dtype": "float32",
+           "epochs": S8_EPOCHS, "float_map50": rec["float_map50"],
+           "int8_map50": rec["int8_map50"], "delta": rec["delta"],
+           "delta_min": S8_DELTA_MIN, "float_min": S8_FLOAT_MIN,
+           "tool_gate": S8_TOOL_GATE, "tool_pass": rec["pass"],
+           "record": rec, "internal_map50": res["last_results"].map50,
+           "fused_convs": len(convs), "out_scales": scaled,
+           "checked": checked, "launches": launches,
+           "train_launches": train_launches,
+           "epoch_seconds_median": statistics.median(
+               e["seconds"] for e in res["epochs"]),
+           "train_seconds": t_train, "gate_seconds": t_gate,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(out)
+    # two evaluations of one batch each, every K2 call checked
+    if rec["float_map50"] < S8_FLOAT_MIN or rec["int8_map50"] <= 0.0 or \
+            rec["delta"] < S8_DELTA_MIN or not convs or \
+            scaled != len(convs) or n_k2 != 2 or \
+            not all(v["ok"] for v in checked.values()):
+        raise AssertionError(f"s8_gate_path: {out}")
+    return out
+
+
+RESUME_DATA = ROOT / "runs" / "chip_smoke_resume"  # git-ignored; removed after
+
+
+def phase_resume_path(torch, dev, card: str):
+    """The spot-VM restart loop: ``train`` writes a run of yolov5s_add at
+    64 px on 8 synthetic pairs (batch 8, accumulate 1), stopped after the
+    first of two epochs (trained with ``epochs=1``, then ``epochs: 2`` in
+    its ``opt.yaml``), beside a JAX-package run (an orbax step folder);
+    ``tools.resume_all`` finds the port's run, names and skips the JAX
+    one, and resumes the run on the card from ``ckpt/epoch0.pt``'s state
+    (epoch counter and optimizer step) to the final epoch; a second
+    ``resume_all`` finds nothing.  Each run's evaluation launches K2 once
+    (counted)."""
+    import os
+    import shutil
+    from unittest import mock
+
+    import yaml
+
+    from mmidet_tpu_torch.data.synthetic import make_synthetic_pair_dataset
+    from mmidet_tpu_torch.tools import resume_all
+    from mmidet_tpu_torch.train import trainer as trainer_mod
+    from mmidet_tpu_torch.train.checkpoint import checkpoints
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RESUME_DATA, ignore_errors=True)
+    runs = RESUME_DATA / "runs"
+    run, jax_run = runs / "exp", runs / "jax_exp"
+    try:
+        yaml_path = make_synthetic_pair_dataset(str(RESUME_DATA / "data"),
+                                                n=8, img=64)
+        cfg = trainer_mod.TrainConfig(
+            model="yolov5s_add", data=yaml_path, epochs=1, batch_size=8,
+            img_size=64, workdir=str(run), mosaic_prob=0.0, nbs=8,
+            autoanchor=False, exist_ok=True, seed=0, warmup_floor=1)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer_mod.train(cfg, device=dev)
+        first_launches = read_counts(nms_greedy=1)
+        t_first = time.perf_counter() - t0
+        opt_path = run / "opt.yaml"
+        opt = yaml.safe_load(opt_path.read_text())
+        opt_path.write_text(yaml.safe_dump({**opt, "epochs": 2}))
+        (jax_run / "ckpt" / "0").mkdir(parents=True)
+        (jax_run / "opt.yaml").write_text(yaml.safe_dump(
+            {"epochs": 4, "model": "yolov5s_add"}))
+        stopped = [os.path.basename(p) for p in
+                   checkpoints(str(run / "ckpt"))]
+        first = torch.load(run / "ckpt" / "epoch0.pt", map_location="cpu",
+                           weights_only=True)
+        restored = []
+        real_restore = trainer_mod.restore_checkpoint
+
+        def restore(src, state):
+            out = real_restore(src, state)
+            restored.append({"src": src, "step": out[1], **out[2],
+                             "micro_step": out[0].micro_step})
+            return out
+        said = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer_mod, "restore_checkpoint", restore), \
+                contextlib.redirect_stdout(said):
+            results = resume_all.main([str(runs)], device=dev)
+        resume_launches = read_counts(nms_greedy=1)
+        t_resume = time.perf_counter() - t0
+        final = [os.path.basename(p) for p in checkpoints(str(run / "ckpt"))]
+        last = torch.load(run / "ckpt" / "epoch1.pt", map_location="cpu",
+                          weights_only=True)
+        again = io.StringIO()
+        with contextlib.redirect_stdout(again):
+            second = resume_all.main([str(runs)], device=dev)
+    finally:
+        shutil.rmtree(RESUME_DATA, ignore_errors=True)
+    rec = {"phase": "resume_path", "card": card, "model": "yolov5s_add",
+           "img": 64, "batch": 8, "stopped_at": stopped, "restored": restored,
+           "first": {k: int(first[k]) for k in ("epoch", "step",
+                                                 "micro_step")},
+           "last": {k: int(last[k]) for k in ("epoch", "step", "micro_step")},
+           "epochs_run": [e["epoch"] for r in results for e in r["epochs"]],
+           "final_ckpts": final, "said": said.getvalue().splitlines(),
+           "second": again.getvalue().splitlines(),
+           "launches_first": first_launches, "launches": resume_launches,
+           "first_seconds": t_first, "resume_seconds": t_resume,
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    if stopped != ["epoch0.pt"] or len(results) != 1 or \
+            rec["epochs_run"] != [1] or final[-1] != "epoch1.pt" or \
+            [(r["src"], r["epoch"], r["step"], r["micro_step"])
+             for r in restored] != [(str(run / "ckpt"), 0, 1, 1)] or \
+            rec["first"] != {"epoch": 0, "step": 1, "micro_step": 1} or \
+            rec["last"] != {"epoch": 1, "step": 2, "micro_step": 2} or \
+            f"skipping {jax_run}:" not in said.getvalue() or \
+            "1 interrupted run(s) found" not in said.getvalue() or \
+            second != [] or \
+            "0 interrupted run(s) found" not in again.getvalue():
+        raise AssertionError(f"resume_path: {rec}")
+    return rec
+
+
 # ------------------------------------------------------------ phases 16-18
 # ------------------------------------------------------------ export_path
 EXPORT_DATA = ROOT / "runs" / "chip_smoke_export"  # git-ignored; removed after
@@ -3403,9 +3631,10 @@ def phase_mosaic_gate(torch, dev, card: str):
 def phase_train_flags_path(torch, dev, card: str):
     """One epoch each of ``quad``, ``multi_scale`` and ``rect`` through
     ``train`` (the flagship at 320 px, batch 8, bf16, on the eval path's
-    pairs: square for the first two, 640x512 for rect), the shapes every
-    step saw held against what the option gives, each evaluation's K1 and
-    K2 calls held against their plain versions and their launches counted
+    first 16 pairs: square for the first two, 640x512 for rect: two steps
+    and two evaluation batches an option), the shapes every step saw held
+    against what the option gives, each evaluation's K1 and K2 calls held
+    against their plain versions and their launches counted
     (``checked_eval``)."""
     from unittest import mock
 
@@ -3415,19 +3644,18 @@ def phase_train_flags_path(torch, dev, card: str):
     from mmidet_tpu_torch.data.loader import RectLoader
     from mmidet_tpu_torch.train import trainer as trainer_mod
     t_phase = time.perf_counter()
-    rect_yaml = EVAL_DATA / "rect" / "train.yaml"
-    rgb, ir = (str(EVAL_DATA / "rect" / f"val_{m}" / "images")
-               for m in ("rgb", "ir"))
-    rect_yaml.write_text(yaml.safe_dump({
-        "train_rgb": rgb, "train_ir": ir, "val_rgb": rgb, "val_ir": ir,
-        "nc": 2}))
+    square_yaml, rect_yaml = evolve_data(16), evolve_data(16, "rect")
+    with open(rect_yaml) as fh:
+        rect_data = yaml.safe_load(fh)
+    rgb, ir = rect_data["train_rgb"], rect_data["train_ir"]
     real_make, real_eval = trainer_mod.make_train_step, trainer_mod.evaluate
     recs = []
-    for option, kw in (("quad", {"quad": True, "mosaic_prob": 1.0}),
+    for option, kw in (("quad", {"quad": True, "mosaic_prob": 1.0,
+                                 "data": square_yaml}),
                        ("multi_scale", {"multi_scale": True,
-                                        "mosaic_prob": 1.0}),
-                       ("rect", {"rect": True,
-                                 "data": str(rect_yaml)})):
+                                        "mosaic_prob": 1.0,
+                                        "data": square_yaml}),
+                       ("rect", {"rect": True, "data": rect_yaml})):
         shapes, step_ms = [], []
 
         def make(*a, **k):
@@ -3779,13 +4007,16 @@ def phase_train_options_path(torch, dev, card: str):
     return rec
 
 
-def evolve_data(n: int = 16) -> str:
-    """A dataset YAML of the eval set's first ``n`` square pairs (hard
-    links), as train and val set."""
+def evolve_data(n: int = 16, pairs: str = "square") -> str:
+    """A dataset YAML of the eval set's first ``n`` pairs (hard links) of
+    ``pairs`` ("square" or the 640x512 "rect" set), as train and val
+    set."""
     import os
 
     import yaml
-    src, dst = EVAL_DATA / "square", EVAL_DATA / f"first{n}"
+    src = EVAL_DATA / pairs
+    dst = EVAL_DATA / (f"first{n}" if pairs == "square"
+                       else f"{pairs}_first{n}")
     for mod in ("val_rgb", "val_ir"):
         imgs = sorted((src / mod / "images").glob("*.png"))[:n]
         for sub, files in (("images", imgs), ("labels", [
@@ -4517,7 +4748,7 @@ def main() -> int:
     phase_train_f32_gate(torch, dev, name)
     phase_mosaic_gate(torch, dev, name)
     train_mosaic = phase_train_path(torch, dev, name, "train_mosaic_path",
-                                    mosaic_prob=1.0)
+                                    epochs=1, mosaic_prob=1.0)
     train_flags = phase_train_flags_path(torch, dev, name)
     phase_remat(torch, dev, name)
     options = phase_train_options_path(torch, dev, name)
@@ -4531,6 +4762,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     hub_rec = phase_hub_path(torch, dev, name)
+    s8 = phase_s8_gate_path(torch, dev, name)
+    resumed = phase_resume_path(torch, dev, name)
     exported = phase_export_path(torch, dev, name)
     exported_rows = phase_export_rows_path(torch, dev, name)
     mamba, _ = phase_path(
@@ -4605,6 +4838,14 @@ def main() -> int:
          "sources_launches": sources["launches_timed"]["nms_greedy"],
          # dp_path: one a batch of BatchingService over two entries
          "dp_serve_launches": dp["serve"]["two"]["launches"]["nms_greedy"],
+         # s8_gate_path: one a batch of the float and of the int8
+         # evaluation, and the trainer's final evaluation; resume_path:
+         # the evaluation of the first run and of the resumed one
+         "s8_gate_launches": s8["launches"]["nms_greedy"],
+         "s8_train_eval_launches": s8["train_launches"]["nms_greedy"],
+         "resume_launches": {
+             "first": resumed["launches_first"]["nms_greedy"],
+             "resumed": resumed["launches"]["nms_greedy"]},
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
@@ -4680,6 +4921,8 @@ def main() -> int:
          "dp_eval_launches": sum(
              r["launches_two"]["nms_greedy_large"]
              for r in dp["evaluate"].values()),
+         # s8_gate_path's float and int8 evaluations (1 a batch)
+         "s8_gate_launches": s8["launches"]["nms_greedy_large"],
          "max_abs_err": k2_large["max_abs_err"], "ms": k2_large["ms"],
          "plain_ms": k2_large["plain_ms"], "bound_ms": k2_large["bound_ms"],
          "bound_by": k2_large["bound_by"], "library_ms": None},

@@ -10,9 +10,10 @@ Tolerances (f32 on both sides):
     is relative to the output's range;
   * the O(1) step functions: the same gate against JAX's step functions
     and against the port's own parallel forward over the same tokens;
-  * ``yolov5s_mamba`` at 64 px: predictions and raw outputs at rtol 1e-4,
-    atol 1e-4 (``tests/test_torch_port_detector.py``'s f32 gate), each
-    MambaFusion level's two outputs within 1e-4 of their range;
+  * ``yolov5s_mamba`` at 64 px (``test_torch_port_mamba_model.py``):
+    predictions and raw outputs at rtol 1e-4, atol 1e-4
+    (``tests/test_torch_port_detector.py``'s f32 gate), each MambaFusion
+    level's two outputs within 1e-4 of their range;
   * the train step: a one-level mamba model (the dryrun grammar with its
     GPT row as MambaFusion; JAX compiles ``yolov5s_mamba``'s step in about
     a minute on the CPU, this one in about 20 s), two steps at lr0 1e-3
@@ -58,10 +59,7 @@ from test_torch_port_train import (_anchors, _batch, _check_moves,  # noqa
                                    _seeded, _threads, _to_torch)
 
 REL_TOL = 1e-5
-F32_TOL = dict(rtol=1e-4, atol=1e-4)
-LEVEL_TOL = 1e-4
 GRAD_TOL = 1e-3
-MAMBA_LEVELS = (6, 13, 20, 29)  # the gpt4 grammar's fusion rows
 D, L = 24, 40                   # module tests: d_model, tokens
 
 
@@ -199,71 +197,6 @@ def test_mamba_specs_resolve_as_the_jax_package(scale):
     # the meta-device forward that ``load_yolo_yaml`` runs
     assert pspec._infer_strides(dataclasses.replace(
         ps, strides=(1, 2, 4))).strides == (8, 16, 32)
-
-
-@pytest.fixture(scope="module")
-def s_mamba():
-    """yolov5s_mamba at 64 px: JAX's seeded variables, its eval forward
-    with the fusion rows' outputs captured, and the port with the same
-    weights."""
-    jmodel = JaxDetector(spec=jax_get_spec("yolov5s_mamba", nc=2),
-                         aux_mode="off")
-    x = jnp.zeros((1, 64, 64, 3))
-    shapes = jax.eval_shape(
-        lambda k: jmodel.init({"params": k}, x, x, train=False),
-        jax.random.PRNGKey(0))
-    v = jax.tree_util.tree_map(np.asarray, _seeded(shapes, 0))
-    rng = np.random.default_rng(0)
-    rgb, ir = (rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
-               for _ in range(2))
-    out, inter = jax.jit(lambda v, a, b: jmodel.apply(
-        v, a, b, train=False, capture_intermediates=True,
-        mutable=["intermediates"]))(v, rgb, ir)
-    levels = {i: [np.asarray(t) for t in inter["intermediates"][
-        f"l{i}_MambaFusion"]["__call__"][0]] for i in MAMBA_LEVELS}
-    port = TwoStreamDetector(get_model_spec("yolov5s_mamba", nc=2))
-    from_jax_variables(port, v)
-    return v, port.eval(), rgb, ir, out, levels
-
-
-def test_yolov5s_mamba_forward_matches_jax(s_mamba):
-    _, port, rgb, ir, want, _ = s_mamba
-    with torch.no_grad():
-        out = port(torch.from_numpy(rgb), torch.from_numpy(ir))
-    np.testing.assert_allclose(out["pred"].numpy(), np.asarray(want["pred"]),
-                               **F32_TOL)
-    for got, w in zip(out["train_outs"], want["train_outs"]):
-        np.testing.assert_allclose(got.numpy(), np.asarray(w), **F32_TOL)
-
-
-@pytest.mark.parametrize("layer", MAMBA_LEVELS)
-def test_yolov5s_mamba_fusion_levels_match_jax(s_mamba, layer):
-    v, port, rgb, ir, _, levels = s_mamba
-    port.truncate_at = layer
-    try:
-        with torch.no_grad():
-            out = port(torch.from_numpy(rgb), torch.from_numpy(ir))["trunc"]
-    finally:
-        port.truncate_at = None
-    for got, want in zip(out, levels[layer]):
-        _close(got.numpy(), want, LEVEL_TOL)
-
-
-@pytest.mark.parametrize("groups", ["fixed", "reference"])
-def test_label_params_of_the_mamba_grammar_match_jax(groups, s_mamba):
-    v = s_mamba[0]
-    want = {torch_key(p)[0]: lab for p, lab in
-            flax.traverse_util.flatten_dict(
-                jopt.label_params(v["params"], groups)).items()}
-    got = popt.label_params(s_mamba[1], groups)
-    assert got == want
-    mixer = "model.6.fwd.layers.0.mixer."
-    assert {k: got[mixer + k] for k in (
-        "conv1d_kernel", "conv1d_bias", "A_log", "D", "in_proj.weight",
-        "dt_proj.bias")} == {
-        "conv1d_kernel": "bn", "conv1d_bias": "bn", "A_log": "bn", "D": "bn",
-        "in_proj.weight": "weight", "dt_proj.bias": "bias"}
-    assert got["model.6.norm_f.weight"] == "bn"
 
 
 # ----------------------------------------------------------- train step

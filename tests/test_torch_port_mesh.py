@@ -17,7 +17,8 @@ After the trainer, the same ranks run ``torch_mesh_ranks``' checks of what
 couple samples (the aux losses of the fusion blocks, the pattern term,
 BatchNorm, dropout) on the two ranks, and one f64 step of the flagship's
 grammar (GPT1_fourier, GPT, CEM, the aux terms) over data 2 and over
-2 x 2, held tensor by tensor."""
+2 x 2, held tensor by tensor.  The mesh rules without ranks are
+``test_torch_port_mesh_rules.py``'s."""
 
 import concurrent.futures
 import dataclasses
@@ -25,7 +26,6 @@ import json
 import os
 import threading
 
-import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,15 +33,11 @@ import pytest
 import torch
 
 from mmidet_tpu.losses.detection import LossHyp as JaxLossHyp
-from mmidet_tpu.models.detector import TwoStreamDetector as JaxDetector
-from mmidet_tpu.models.zoo import get_model_spec as jax_get_spec
 from mmidet_tpu.parallel import mesh as jmesh
 from mmidet_tpu.train import optimizer as jopt
 from mmidet_tpu.train import schedule as jsched
-from mmidet_tpu.train import trainer as jtrainer
 from mmidet_tpu.train.step import init_state as jax_init_state
 from mmidet_tpu.train.step import make_train_step as jax_make_train_step
-from mmidet_tpu_torch.bridge import repeated_rows, torch_key
 from mmidet_tpu_torch.data.augment import AugmentHyp, make_batch_augment
 from mmidet_tpu_torch.data.datasets import PairedDataset
 from mmidet_tpu_torch.data.loader import PairedLoader
@@ -52,7 +48,6 @@ from mmidet_tpu_torch.models.detector import TwoStreamDetector
 from mmidet_tpu_torch.models.zoo import get_model_spec
 from mmidet_tpu_torch.nn.fuse import fold_batchnorm
 from mmidet_tpu_torch.parallel import launch as launch_mod
-from mmidet_tpu_torch.parallel import mesh as pmesh
 from mmidet_tpu_torch.parallel.mesh import tp_modules
 from mmidet_tpu_torch.train import optimizer as popt
 from mmidet_tpu_torch.train import trainer
@@ -64,7 +59,6 @@ from test_torch_port_train import (ZERO_AUG, _anchors, _check_moves,  # noqa
 import torch_mesh_ranks as ranks
 
 B, STEPS, IMG = 4, 3, 64
-FLAGSHIP = "yolov5l_fuse3_fourier"
 # the JAX step's schedule: the trainer's (3 steps an epoch, lr 1e-3), two
 # epochs; epoch 0's lr and momentum do not depend on the number of epochs
 SCHED = jsched.ScheduleConfig(epochs=2, steps_per_epoch=STEPS,
@@ -292,54 +286,6 @@ def test_mesh_runs_match_jax_and_one_process(run, jax_step):
                  resumed.ema.state_dict(), sd0, "resumed ema")
 
 
-_MODELS = {}
-
-
-@pytest.mark.parametrize("model,n_model,tp_min_out", [
-    ("yolov5s_add", 2, 64), (FLAGSHIP, 2, 256), (FLAGSHIP, 4, 256)])
-def test_sharding_rule_picks_jax_leaves(model, n_model, tp_min_out):
-    """``tp_modules`` names exactly the leaves that JAX's
-    ``param_shardings`` puts on 'model', through the bridge (the flagship's
-    GPT1_fourier blocks included)."""
-    if model not in _MODELS:  # JAX's shapes (traced only), the port's
-        with torch.device("meta"):   # layers without their weights' values
-            port = TwoStreamDetector(get_model_spec(model, nc=2),
-                                     aux_mode="reference")
-        _MODELS[model] = (_jax_shapes(JaxDetector(
-            spec=jax_get_spec(model, nc=2), aux_mode="reference")), port)
-    shapes, port = _MODELS[model]
-    mesh = jmesh.make_mesh(8 // n_model, n_model, jax.devices()[:8])
-    specs = jmesh.param_shardings(shapes["params"], mesh, tp_min_out)
-    rep = repeated_rows(shapes)
-    want = {torch_key(path, rep)[0] for path, s in
-            flax.traverse_util.flatten_dict(specs).items()
-            if any(a is not None for a in s.spec)}
-    got = {f"{n}.weight" for n in tp_modules(port, n_model, tp_min_out)}
-    assert got == want and want
-
-
-def test_attention_shards_are_jax_head_dim_slices():
-    """A query/key/value kernel (c, heads, head_dim) shards head_dim in
-    JAX: each rank's rows of the torch weight are those of its slice
-    (``bridge.to_torch_layout``), and the gathered shards go back in
-    order."""
-    from mmidet_tpu_torch.bridge import to_torch_layout
-    from mmidet_tpu_torch.parallel.mesh import _rows
-    c, heads, n = 16, 4, 2
-    k = np.arange(c * c, dtype=np.float32).reshape(c, heads, c // heads)
-    w = torch.from_numpy(to_torch_layout(k, "mha_in"))
-    lin = torch.nn.Linear(c, c)
-    parts, perm = [], None
-    for m in range(n):
-        rows, perm = _rows(lin, n, m, heads)
-        hd = c // heads // n
-        want = to_torch_layout(np.ascontiguousarray(
-            k[:, :, m * hd:(m + 1) * hd]), "mha_in")
-        np.testing.assert_array_equal(w[rows].numpy(), want)
-        parts.append(w[rows])
-    assert torch.equal(torch.cat(parts)[perm], w)
-
-
 def test_global_batch_terms_over_two_ranks(run):
     """Every term that couples samples, on two gloo ranks holding 2 rows
     each, against one process on the 4 rows: the contrastive pairs across
@@ -385,47 +331,6 @@ def test_f64_flagship_grammar_step_per_tensor(run, mesh):
             err = (g - w).abs().max().item()
             assert err <= F64_MOVE_TOL * max(moved, F64_MOVE_FLOOR), \
                 (what, k, err, moved)
-
-
-@pytest.mark.parametrize("device,want", [
-    ("cuda", ["cuda:0", "cuda:1"]), ("cuda:1", ["cuda:1"]),
-    ("cpu", ["cpu"])])
-def test_default_devices_take_every_card_only_for_a_bare_cuda(
-        monkeypatch, device, want):
-    """The default of ``train``, ``evaluate`` and the serve CLI: every
-    visible card (``jax.devices()``) for a bare ``"cuda"``; a device with
-    an index, or the CPU, is that device alone (here with two cards
-    faked)."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert pmesh.default_devices(device) == [torch.device(d) for d in want]
-
-
-@pytest.mark.parametrize("case", [
-    dict(batch_size=8, n_model=2), dict(batch_size=3),
-    dict(batch_size=8, mesh="off"), dict(batch_size=8, devices=1),
-    dict(batch_size=8, n_model=16), dict(batch_size=8, n_model=2,
-                                         devices=1)])
-def test_setup_mesh_follows_jax(case):
-    """Shapes, the data axis' clamp and the errors, as JAX's
-    ``setup_mesh`` on the cases of ``tests/test_trainer_mesh.py``."""
-    case = dict(case)
-    n = case.pop("devices", 8)
-    jdevs, pdevs = jax.devices()[:n], ["cpu"] * n
-
-    def outcome(fn, cfg, devs):
-        try:
-            return fn(cfg, devs)
-        except ValueError as e:
-            return type(e)
-    want = outcome(jtrainer.setup_mesh, jtrainer.TrainConfig(**case), jdevs)
-    got = outcome(trainer.setup_mesh, trainer.TrainConfig(**case), pdevs)
-    if want is ValueError:
-        assert got is ValueError
-    elif want[0] is None:
-        assert got is None
-    else:
-        assert got == (want[0].shape["data"], want[0].shape["model"])
 
 
 def _same_records(want: list, got: list) -> None:

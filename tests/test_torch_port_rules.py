@@ -1,8 +1,10 @@
 """Rules the PyTorch port keeps: it imports nothing of JAX or of the JAX
-package, nor TensorFlow, protobuf or flatbuffers (the card's machine has
+package (its top-level ``tools/`` included), nor TensorFlow, protobuf or
+flatbuffers (the card's machine has
 none of them: the port's SavedModel and TFLite codecs are its own), its
 entry point defaults to the card, and its kernel wrappers never fall back
-to the plain version for a tensor that is not on the CPU."""
+to the plain version for a tensor that is not on the CPU (each slice's
+entry points: ``test_torch_port_rules_entry.py``)."""
 
 import ast
 from pathlib import Path
@@ -18,7 +20,7 @@ from mmidet_tpu_torch.tools import probe_cem_fb, probe_cem_r3, probe_igemm
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mmidet_tpu",
-             "tensorflow", "google.protobuf", "flatbuffers")
+             "tools", "tensorflow", "google.protobuf", "flatbuffers")
 
 
 def _imports(path):
@@ -40,7 +42,8 @@ def test_port_and_chip_scripts_import_no_jax():
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 15
     assert {"probe_igemm.py", "probe_cem_r3.py", "probe_cem_fb.py",
-            "timing.py"} <= {f.name for f in files
+            "timing.py", "split_dataset.py", "log_dataset.py",
+            "resume_all.py", "s8_gate.py"} <= {f.name for f in files
                              if f.parent.name == "tools"}
     bad = {str(f.relative_to(ROOT)): n for f in files for n in _imports(f)
            if _forbidden(n)}
@@ -54,6 +57,8 @@ def test_forbidden_matcher():
     assert _forbidden("tensorflow") and _forbidden("tensorflow.lite.python")
     assert _forbidden("google.protobuf.message") and _forbidden("flatbuffers")
     assert not _forbidden("google") and not _forbidden("tensorflowjs_like")
+    assert _forbidden("tools.s8_gate") and _forbidden("tools")
+    assert not _forbidden("mmidet_tpu_torch.tools.s8_gate")
 
 
 def test_detection_service_defaults_to_the_card():
@@ -192,81 +197,6 @@ def test_kernel_sources_are_in_the_package():
         assert src.stem in kernels.LIBRARIES, src.name
 
 
-def test_eval_path_modules_are_covered_and_default_to_the_card():
-    """The evaluation path's modules are among the files the import rule
-    above reads, and its entry points run on the card unless asked for
-    the CPU."""
-    import inspect
-
-    from mmidet_tpu_torch.cli import detect, val
-    from mmidet_tpu_torch.eval import evaluator
-    port = ROOT / "mmidet_tpu_torch"
-    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
-    assert {"data/datasets.py", "data/synthetic.py", "data/native.py",
-            "data/loader.py", "models/spec.py", "models/zoo.py",
-            "models/detector.py", "models/tta.py", "eval/metrics.py",
-            "eval/evaluator.py", "utils/general.py", "utils/plots.py",
-            "cli/val.py", "cli/detect.py"} <= files
-    for fn in (evaluator.evaluate, val.main, val.load_model_and_vars,
-               detect.main):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            evaluator.eval_device("cuda")
-
-
-def test_training_modules_are_covered_and_default_to_the_card():
-    """The training path's modules are among the files the import rule
-    above reads, and ``train`` and ``cli.train`` run on the card unless
-    asked for the CPU."""
-    import inspect
-
-    from mmidet_tpu_torch.cli import train as train_cli
-    from mmidet_tpu_torch.train import trainer
-    port = ROOT / "mmidet_tpu_torch"
-    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
-    assert {"ops/boxes.py", "losses/detection.py", "losses/fusion.py",
-            "nn/fusion.py", "nn/layers.py", "models/detector.py",
-            "train/schedule.py", "train/optimizer.py", "train/ema.py",
-            "train/step.py", "train/checkpoint.py", "train/trainer.py",
-            "data/augment.py", "utils/autoanchor.py", "utils/logger.py",
-            "utils/general.py", "utils/plots.py", "cli/train.py"} <= files
-    for fn in (trainer.train, train_cli.main):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
-    if not torch.cuda.is_available():
-        cfg = trainer.TrainConfig(data="unused.yaml", mosaic_prob=0.0)
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            trainer.train(cfg)
-
-
-def test_serving_modules_are_covered_and_default_to_the_card():
-    """The serving front end's modules (the s8-storage deploy, bundles,
-    the hub, ensembles, the serving benchmark) are among the files the
-    import rule above reads, and their entry points run on the card
-    unless asked for the CPU."""
-    import inspect
-
-    from mmidet_tpu_torch import hub
-    from mmidet_tpu_torch.deploy import serve
-    from mmidet_tpu_torch.models import ensemble
-    from mmidet_tpu_torch.tools import serve_bench
-    port = ROOT / "mmidet_tpu_torch"
-    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
-    assert {"nn/quant.py", "deploy/serve.py", "deploy/export.py", "hub.py",
-            "models/ensemble.py", "tools/serve_bench.py"} <= files
-    for fn in (serve.BatchingService, serve.DetectionService, serve.main,
-               hub.AutoShapeModel, hub._make, hub.custom,
-               ensemble.attempt_load_ensemble):
-        assert inspect.signature(fn).parameters["device"].default == "cuda"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            serve.BatchingService(torch.nn.Identity(), ["a"])
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            serve_bench.main([])
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            serve.main([])
-
-
 def test_kernels_are_traceable_custom_ops():
     """K1, K3 and K4 are ``torch.library`` ops in one namespace, with a CPU
     implementation (the plain version), a CUDA one (the kernel) and a fake
@@ -291,61 +221,3 @@ def test_kernels_are_traceable_custom_ops():
             (3, 3, 3, 24), (24,), (24,), (24,), (3, 3, 24, 3), (3,))]
         y = cem_cuda.fused_cem(x, *w)
         assert y.shape == x.shape and y.device.type == "cuda"
-
-
-def test_export_modules_are_covered_and_default_to_the_card():
-    """The export path's modules (the checkpoint reader, the ONNX codec,
-    emitter and runner, the shared wire helpers and row walk, the TF
-    graph emitter, the SavedModel and TFLite codecs and their numpy
-    runner) are among the files the import rule above reads, and the
-    export CLI runs on the card unless asked for the CPU."""
-    import inspect
-
-    from mmidet_tpu_torch.deploy import export
-    port = ROOT / "mmidet_tpu_torch"
-    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
-    assert {"deploy/export.py", "deploy/onnx_proto.py", "deploy/onnx_np.py",
-            "deploy/onnx_export.py", "train/checkpoint.py",
-            "nn/resize.py", "deploy/pbwire.py", "deploy/rows.py",
-            "deploy/tf_graph.py", "deploy/tf_proto.py",
-            "deploy/tflite_fb.py", "deploy/tf_np.py"} <= files
-    assert inspect.signature(export.main).parameters["device"].default == \
-        "cuda"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            export.main(["--cfg", "yolov5t_add"])
-
-
-def test_tenth_slice_modules_are_covered_and_default_to_the_card(tmp_path):
-    """The modules of the trainer's remaining options, the inference
-    sources and the utils leftovers are among the files the import rule
-    above reads; the trainer and the train CLI with those options (and
-    ``--evolve``) still run on the card unless asked for the CPU; since
-    the data-parallel options (A13) are ported too, the trainer has no
-    ``unported`` check left and no port file names ROADMAP A13 or A15."""
-    import inspect
-
-    from mmidet_tpu_torch.cli import train as train_cli
-    from mmidet_tpu_torch.train import trainer
-    port = ROOT / "mmidet_tpu_torch"
-    files = {str(f.relative_to(port)) for f in port.rglob("*.py")}
-    assert {"data/sources.py", "train/evolve.py", "utils/artifacts.py",
-            "utils/logger.py", "utils/general.py", "utils/plots.py",
-            "utils/profiler.py", "utils/gradcam.py", "utils/ds_fusion.py",
-            "utils/downloads.py", "nn/aux_experimental.py",
-            "bridge.py"} <= files
-    assert not hasattr(trainer, "unported")
-    assert "cfg.n_model" in inspect.getsource(trainer.setup_mesh)
-    for f in sorted(port.rglob("*.py")):
-        text = f.read_text()
-        assert "A15" not in text and "A13" not in text, f
-    if not torch.cuda.is_available():
-        cfg = trainer.TrainConfig(data="unused.yaml", mosaic_prob=0.0,
-                                  image_weights=True, log_artifacts=True,
-                                  bbox_interval=1, use_wandb=True,
-                                  bucket="b", workdir=str(tmp_path / "x"))
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            trainer.train(cfg)
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            train_cli.main(["--data", "unused.yaml", "--evolve", "1",
-                            "--project", str(tmp_path)])
